@@ -10,20 +10,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``nvcc`` per source, all started together).
 3. ``kernel_nms``: kernel B1 (``nms_boxes``) against its plain PyTorch
    version on the card; keep masks must be bit-identical. Times both.
-4. ``slice_rcnn``: the main path, NeRF-RCNN full inference through
-   ``RCNNTrainer.predict_scene`` at the bench configuration (a
-   200x200x132 grid, VGG-EF, 11 classes, 20 rois, NMS 0.15, 25
-   detections, bf16 compute, seeded random weights). The launch counts are
-   zeroed just before that run and read just after; every kernel of the
-   path must have launched. The detections must equal a re-run of the
-   post-processing with the plain NMS sweep, and a small f32 input must
-   agree with the port's CPU reference.
-5. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
-   launches on the main path, error, times and bound.
+4. ``kernel_nms_iou``: kernel B2 (``nms_sweep``) against its plain version
+   on rotated-IoU matrices of random overlapping OBBs; keep masks must be
+   bit-identical. Times both at K = 4000.
+5. ``slice_rcnn`` (main path of slice 1): NeRF-RCNN full inference through
+   ``RCNNTrainer.predict_scene`` at the bench configuration (a 200x200x132
+   grid, VGG-EF, 11 classes, 20 rois, NMS 0.15, 25 detections, bf16
+   compute, seeded random weights). The detections must equal a re-run of
+   the post-processing with the plain NMS sweep.
+6. ``small_reference``: the same path in f32 on a small input, card
+   against the port's CPU reference.
+7. ``slice_rpn`` (main path of slice 2): rotated anchor NeRF-RPN proposal
+   inference through ``RPNTrainer.predict_scene`` at the RPN's benchmark
+   shape (a 200x200x130 grid padded to 224x224x160, VGG-EF, 13 anchors,
+   1000 proposals per level before and 1000 after the NMS at 0.7, bf16
+   compute, seeded random weights). The NMS sees K = 4000 candidates; the
+   proposals must equal a re-run of the filtering with the plain sweep.
+   Reports the time by stage.
+8. ``small_reference_rpn``: the RPN in f32 on a small input, rotated and
+   AABB, card against the port's CPU reference.
+9. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
+   launches on its path, error, times and bound.
 
-Before the last line it prints the ``nvidia-smi`` name and power limit; the
-last line is ``{"ok": true, "device": {...}}``. With no CUDA device, or
-without the package beside it, it exits nonzero and prints no result.
+Before each main path every launch count is set to 0 and it is read just
+after; each path must have launched its kernel. Before the last line the
+script prints the ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``. With no CUDA device, or without the
+package beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -80,6 +93,20 @@ def random_sorted_boxes(rng, shape, size, p_valid=0.9):
     return boxes, valid
 
 
+def zero_launches() -> None:
+    from instance_nerf_tpu_torch.kernels import nms_cuda
+
+    nms_cuda.nms_boxes.launches = 0
+    nms_cuda.nms_sweep.launches = 0
+
+
+def read_launches() -> dict:
+    from instance_nerf_tpu_torch.kernels import nms_cuda
+
+    return {"nms_boxes": nms_cuda.nms_boxes.launches,
+            "nms_sweep": nms_cuda.nms_sweep.launches}
+
+
 def phase_env():
     import torch
 
@@ -94,7 +121,7 @@ def phase_build():
     from instance_nerf_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build_all(["nms_sweep"])
+    build.build_all(["nms_sweep", "nms_sweep_iou"])
     info = {n: {"seconds": round(v["seconds"], 3),
                 "ptxas": [l for l in v["ptxas"].splitlines() if "registers" in l
                           or "spill" in l]}
@@ -164,7 +191,6 @@ def bench_inputs(rng, w=200, l=200, h=132, p=20):
 def phase_slice_rcnn():
     import torch
 
-    from instance_nerf_tpu_torch.kernels import nms_cuda
     from instance_nerf_tpu_torch.kernels.nms_cuda import nms_boxes_plain
     from instance_nerf_tpu_torch.models.rcnn import postprocess_detections
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
@@ -177,12 +203,12 @@ def phase_slice_rcnn():
     grid = torch.from_numpy(grid_np).to("cuda")
 
     # the main path: counts zeroed just before, read just after
-    nms_cuda.nms_boxes.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     det, masks = trainer.predict_scene(grid, rois)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"nms_boxes": nms_cuda.nms_boxes.launches}
+    launches = read_launches()
     if launches["nms_boxes"] < 1:
         raise AssertionError(f"the main path launched no NMS kernel: {launches}")
 
@@ -280,6 +306,224 @@ def phase_small_reference():
     if not all(same.values()) or box_err > 1e-2 or mask_agree < 0.999:
         raise AssertionError("f32 card detections disagree with the CPU reference")
 
+def random_sorted_obbs(rng, shape, size, p_valid=0.9):
+    """Score-ordered OBBs (x, y, z, w, l, h, theta), about 10% invalid: a
+    quarter are drawn at random, the rest are jittered copies of those, so
+    many pairs overlap above the 0.7 threshold."""
+    n = shape[-1]
+    lead = shape[:-1]
+    m = max(1, n // 4)
+    base = np.concatenate([rng.uniform(0, size, (*lead, m, 3)),
+                           rng.uniform(4.0, 16.0, (*lead, m, 3)),
+                           rng.uniform(-np.pi, np.pi, (*lead, m, 1))], -1)
+    pick = rng.integers(0, m, (*lead, n))
+    boxes = np.take_along_axis(base, pick[..., None], axis=-2)
+    jitter = np.concatenate([rng.normal(0, 0.5, (*lead, n, 3)),
+                             np.zeros((*lead, n, 3)),
+                             rng.normal(0, 0.05, (*lead, n, 1))], -1)
+    boxes = boxes + jitter
+    boxes[..., 3:6] *= rng.uniform(0.9, 1.1, (*lead, n, 3))
+    valid = rng.uniform(size=shape) < p_valid
+    return boxes.astype(np.float32), valid
+
+
+def obb_iou_matrix(boxes):
+    """The port's rotated IoU of score-ordered boxes against themselves:
+    ``(K, K)`` or ``(B, K, K)``."""
+    import torch
+
+    from instance_nerf_tpu_torch.ops.rotated_iou import pairwise_iou_3d
+
+    if boxes.dim() == 2:
+        return pairwise_iou_3d(boxes, boxes)
+    return torch.stack([pairwise_iou_3d(b, b) for b in boxes])
+
+
+def sweep_bound_ms(keep):
+    """Least time for the IoU sweep on these inputs: the later columns of
+    every kept row read once (4 B each) and the valid and keep flags (1 B
+    each per box), or one comparison per such entry, the larger."""
+    k = keep.shape[-1]
+    kept_idx = keep.reshape(-1, k).nonzero()[:, 1].double()
+    entries = float((k - 1 - kept_idx).sum())
+    byte_s = (entries * 4 + keep.numel() * 2) / PEAK_BYTES_PER_S
+    ops_s = entries / PEAK_F32_OPS_PER_S
+    return max(byte_s, ops_s) * 1e3, "bytes" if byte_s > ops_s else "operations"
+
+
+def phase_kernel_nms_iou():
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_sweep, nms_sweep_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    cases = [("k200", (200,), 30.0, 0.9), ("k1000", (1000,), 60.0, 0.9),
+             ("k4000", (4000,), 120.0, 0.9), ("k4096", (4096,), 120.0, 0.9),
+             ("k4097", (4097,), 120.0, 0.9), ("k1", (1,), 10.0, 1.0),
+             ("all_invalid", (300,), 30.0, 0.0), ("batched_4x1000", (4, 1000), 60.0, 0.9)]
+    results, inputs = [], {}
+    for name, shape, size, p_valid in cases:
+        boxes, valid = random_sorted_obbs(rng, shape, size, p_valid)
+        iou = obb_iou_matrix(torch.from_numpy(boxes).to(dev)).contiguous()
+        v = torch.from_numpy(valid).to(dev)
+        got = nms_sweep(iou, v, 0.7)
+        want = nms_sweep_plain(iou, v, 0.7)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        results.append({"case": name, "shape": list(shape), "kept": int(got.sum()),
+                        "valid": int(v.sum()), "mismatches": mismatches})
+        if mismatches:
+            raise AssertionError(f"nms_sweep kernel disagrees with the plain sweep: {results[-1]}")
+        if name == "all_invalid" and bool(got.any()):
+            raise AssertionError("all-invalid input kept a box")
+        if name == "k1" and not bool(got.all()):
+            raise AssertionError("a single valid box was not kept")
+        inputs[name] = (iou, v, got)
+    iou, v, keep = inputs["k4000"]
+    if not 0 < int(keep.sum()) < int(v.sum()):
+        raise AssertionError("K = 4000 case suppresses nothing: not a test of the sweep")
+    timing = {"k4000": {
+        "kernel_ms": cuda_ms(lambda: nms_sweep(iou, v, 0.7), reps=20),
+        "plain_ms": cuda_ms(lambda: nms_sweep_plain(iou, v, 0.7), reps=3, warmup=1),
+        "bound_ms": sweep_bound_ms(keep)[0],
+    }}
+    emit({"phase": "kernel_nms_iou", "cases": results, "timing": timing})
+    return timing
+
+
+def phase_slice_rpn():
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_sweep_plain
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer, pad_to_32
+
+    cfg = RPNConfig(rotated_bbox=True, dtype="bfloat16", resolution=160, seed=0)
+    trainer = RPNTrainer(cfg, device="cuda")
+    trainer.init_state()
+    shape = (200, 200, 130)
+    grid_np = np.random.default_rng(0).uniform(0, 1, (*shape, 4)).astype(np.float32)
+    grid = torch.from_numpy(grid_np).to("cuda")
+
+    # the main path: counts zeroed just before, read just after
+    zero_launches()
+    t0 = time.perf_counter()
+    boxes, scores, lvls, feats, obj = trainer.predict_scene(grid)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["nms_sweep"] < 1:
+        raise AssertionError(f"the RPN path launched no nms_sweep kernel: {launches}")
+
+    n = int(boxes.shape[0])
+    if boxes.dim() != 2 or boxes.shape[1] != 7 or not 1 <= n <= cfg.post_nms_top_n:
+        raise AssertionError(f"proposals {tuple(boxes.shape)}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores.float()).all()):
+        raise AssertionError("non-finite proposals")
+
+    # the same objectness and deltas filtered with the kernel and with the
+    # plain sweep must give identical proposals
+    obj, reg, anchors, feats, sizes, pm = trainer.head_outputs(grid)
+    captured = []
+
+    def plain_sweep(iou, svalid, thr):  # records the scene's NMS input
+        captured.append((iou, svalid))
+        return nms_sweep_plain(iou, svalid, thr)
+
+    props_k = trainer.filter(obj, reg, anchors, sizes, pm)
+    props_p = trainer.filter(obj, reg, anchors, sizes, pm, nms_sweep=plain_sweep)
+    for f in props_k._fields:
+        if not torch.equal(getattr(props_k, f), getattr(props_p, f)):
+            raise AssertionError(f"kernel vs plain NMS proposals differ in {f}")
+    v = props_k.valid[0]
+    same_as_predict = (torch.equal(props_k.boxes[0][v], boxes)
+                       and torch.equal(props_k.level_ids[0][v], lvls))
+    iou, svalid = captured[0]
+    k = int(iou.shape[0])
+    if k != 4 * cfg.pre_nms_top_n:
+        raise AssertionError(f"NMS input has K = {k}, expected {4 * cfg.pre_nms_top_n}")
+    del feats, obj, reg, props_k, props_p
+
+    bench = trainer.benchmark(reps=10, shape=shape)
+    prof = trainer.profile(reps=5, shape=shape)
+    emit({"phase": "slice_rpn", "grid": list(shape), "padded": [pad_to_32(d) for d in shape],
+          "backbone": "vgg_EF", "anchors_per_location": 13, "rotated_bbox": True,
+          "pre_nms_top_n": cfg.pre_nms_top_n, "post_nms_top_n": cfg.post_nms_top_n,
+          "nms_thresh": cfg.nms_thresh, "nms_candidates": k, "dtype": "bfloat16",
+          "launches": launches, "first_call_s": round(first_s, 3),
+          "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
+          "plain_nms_identical": True, "same_as_predict_scene": same_as_predict,
+          "predict_scene": bench, "profile": prof})
+    del trainer, grid
+    torch.cuda.empty_cache()
+    return launches, (iou, svalid)
+
+
+def phase_small_reference_rpn():
+    """f32 on the card (TF32 off) against the port's CPU reference on a
+    small input with the same seeded weights, rotated and AABB. 128
+    proposals per level before the NMS and 100 after keep the CPU's dense
+    rotated IoU small. The seeded head draws its objectness kernel from
+    normal(0.01), whose sigmoid scores sit an ulp or two apart; both runs
+    scale that kernel by 5, which puts the proposals' scores at least 2e-6
+    (about 35 ulps) apart, so their order is decided by more than
+    rounding."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_sweep_plain
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
+
+    grid = np.random.default_rng(2).uniform(0, 1, (48, 40, 36, 4)).astype(np.float32)
+    report = {"phase": "small_reference_rpn", "grid": [48, 40, 36], "dtype": "float32"}
+    failed = []
+    for rotated in (True, False):
+        cfg = RPNConfig(rotated_bbox=rotated, dtype="float32", resolution=160, seed=3,
+                        pre_nms_top_n=128, post_nms_top_n=100)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            tr = RPNTrainer(cfg, device=device)
+            tr.init_state()
+            with torch.no_grad():
+                tr.model.rpn_head.cls_logits.weight.mul_(5.0)
+            obj, reg, anchors, feats, sizes, pm = tr.head_outputs(grid)
+            captured = []
+
+            def sweep(iou, svalid, thr, _cap=captured):  # records the NMS input
+                _cap.append((iou, svalid))
+                return nms_sweep_plain(iou, svalid, thr)
+
+            props = tr.filter(obj, reg, anchors, sizes, pm,
+                              nms_sweep=sweep if rotated and device == "cpu" else None)
+            outs[device] = (obj.cpu(), reg.cpu(), [p.cpu() for p in props], captured)
+        (oc, rc, pc, _), (op, rp, pp, cap) = outs["cuda"], outs["cpu"]
+        raw_err = max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                      for a, b in ((oc, op), (rc, rp)))
+        same = {f: bool(torch.equal(a, b)) for f, a, b in
+                zip(("valid", "level_ids"), (pc[3], pc[2]), (pp[3], pp[2]))}
+        box_err = float((pc[0] - pp[0]).abs().max())
+        sc = torch.sort(pp[1][0][pp[3][0]].float()).values
+        score_gap = float((sc[1:] - sc[:-1]).min()) if sc.numel() > 1 else 1.0
+        mode = "rotated" if rotated else "aabb"
+        report[mode] = {"max_rel_err_raw_outputs": raw_err, "discrete_identical": same,
+                        "max_abs_box_err": box_err, "proposals": int(pp[3].sum()),
+                        "min_score_gap": score_gap}
+        if rotated:
+            # the entries the sweep decides on: valid rows against later
+            # valid columns
+            iou, svalid = cap[0]
+            pairs = torch.triu(svalid[:, None] & svalid[None, :], diagonal=1)
+            iou_margin = float((iou[pairs] - 0.7).abs().min())
+            report[mode]["iou_margin_to_0.7"] = iou_margin
+            if iou_margin < 1e-5:
+                failed.append(f"{mode}: an OBB IoU lies within 1e-5 of 0.7")
+        if raw_err > 1e-4:
+            failed.append(f"{mode}: raw outputs differ by {raw_err} > 1e-4 relative")
+        if not all(same.values()) or box_err > 1e-3:
+            failed.append(f"{mode}: f32 card proposals disagree with the CPU reference")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
 
 def main():
     import torch
@@ -292,9 +536,15 @@ def main():
     smi = phase_env()
     phase_build()
     timing = phase_kernel_nms()
-    launches, (sboxes, svalid) = phase_slice_rcnn()
+    timing_iou = phase_kernel_nms_iou()
+    launches_rcnn, (sboxes, svalid) = phase_slice_rcnn()
 
-    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_boxes, nms_boxes_plain
+    from instance_nerf_tpu_torch.kernels.nms_cuda import (
+        nms_boxes,
+        nms_boxes_plain,
+        nms_sweep,
+        nms_sweep_plain,
+    )
 
     keep_k = nms_boxes(sboxes, svalid, 0.15)
     keep_p = nms_boxes_plain(sboxes, svalid, 0.15)
@@ -305,15 +555,37 @@ def main():
     bound_ms, bound_by = nms_bound_ms(keep_k)
     p_ms = cuda_ms(lambda: nms_boxes_plain(sboxes, svalid, 0.15), reps=5, warmup=1)
     phase_small_reference()
+
+    launches_rpn, (iou, ivalid) = phase_slice_rpn()
+    keep_k = nms_sweep(iou, ivalid, 0.7)
+    keep_p = nms_sweep_plain(iou, ivalid, 0.7)
+    err_iou = float((keep_k.int() - keep_p.int()).abs().max())
+    if err_iou:
+        raise AssertionError("nms_sweep kernel disagrees on the scene's own NMS input")
+    ki_ms = cuda_ms(lambda: nms_sweep(iou, ivalid, 0.7), reps=20)
+    bound_iou_ms, bound_iou_by = sweep_bound_ms(keep_k)
+    pi_ms = cuda_ms(lambda: nms_sweep_plain(iou, ivalid, 0.7), reps=3, warmup=1)
+    kept = int(keep_k.sum())
+    phase_small_reference_rpn()
+
     emit({"kernels": [{
         "name": "nms_boxes", "route": "cuda",
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:113",
-        "launches": launches["nms_boxes"], "max_abs_err": err,
+        "launches": launches_rcnn["nms_boxes"], "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
+    }, {
+        "name": "nms_sweep", "route": "cuda",
+        "source": "instance_nerf_tpu_torch/csrc/nms_sweep_iou.cu",
+        "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:157",
+        "launches": launches_rpn["nms_sweep"], "max_abs_err": err_iou,
+        "ms": ki_ms, "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
+        "bound_by": bound_iou_by, "library_ms": None,
+        "k": int(iou.shape[0]), "kept": kept,
+        "random_k4000": timing_iou["k4000"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 
 Modes in the port so far: ``check_arch``, ``benchmark`` and ``profile``
 (a ``torch.profiler`` split of ``predict_scene`` by stage and kernel).
-``eval`` needs the dataset and metrics modules (first in slice 2's
+``eval`` needs the dataset and metrics modules (first in slice 3's
 queue) and ``train`` comes with slice 4; both raise
 ``NotImplementedError``.
 
@@ -93,7 +93,7 @@ def main(argv=None):
         raise NotImplementedError("--mode train comes with slice 4 (detector training)")
     if args.mode == "eval":
         raise NotImplementedError(
-            "--mode eval needs the dataset and metrics modules, first in slice 2")
+            "--mode eval needs the dataset and metrics modules, first in slice 3")
 
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
 

@@ -1,4 +1,5 @@
-"""flax params tree (numpy leaves) -> the port's ``NeRF_RCNN`` state dict.
+"""flax params tree (numpy leaves) -> a state dict of the port's
+``NeRF_RCNN`` or ``NeRFRegionProposalNetwork``.
 
 Mappings:
 
@@ -73,3 +74,11 @@ def rcnn_params_from_jax(params) -> dict[str, torch.Tensor]:
         key = ".".join([_RENAME.get(m, m) for m in mods] + [name])
         out[key] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def rpn_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """Convert a flax ``NeRFRegionProposalNetwork`` params tree to a
+    ``state_dict``: the backbone as for ``NeRF_RCNN``, and the head's
+    ``rpn_head/conv_i``, ``cls_logits`` and ``bbox_pred`` as plain 5-D
+    convs (the same leaf mapping)."""
+    return rcnn_params_from_jax(params)

@@ -1,13 +1,19 @@
-"""Greedy AABB NMS sweep: CUDA kernel B1 and its plain PyTorch version.
+"""Greedy NMS sweeps: CUDA kernels B1 and B2 and their plain PyTorch
+versions (the JAX package keeps both sweeps in ``kernels/nms_pallas.py``).
 
-Replaces ``instance_nerf_tpu/kernels/nms_pallas.py:nms_boxes_pallas``.
-The kernel (``csrc/nms_sweep.cu``) runs one thread block per independent
-problem with the boxes and suppression flags in shared memory; it is bound
-by the K-step dependency chain (one barrier per surviving row), not by
-bytes or operations. See the source for the design.
+* B1 ``nms_boxes`` replaces ``nms_pallas.py:nms_boxes_pallas``: the AABB
+  sweep with the IoU computed in the kernel (``csrc/nms_sweep.cu``).
+* B2 ``nms_sweep`` replaces ``nms_pallas.py:nms_sweep_pallas``: the sweep
+  over a precomputed score-ordered IoU matrix, which the OBB path fills
+  with the rotated IoU (``csrc/nms_sweep_iou.cu``).
 
-``nms_boxes`` takes a CUDA tensor to the kernel and a CPU tensor to
-``nms_boxes_plain``; a CUDA tensor never falls back to the plain version.
+Both run one thread block per independent problem with the suppression
+flags in shared memory; both are bound by the K-step dependency chain (one
+barrier per surviving row), not by bytes or operations. See the sources
+for the designs.
+
+A wrapper takes a CUDA tensor to its kernel and a CPU tensor to its plain
+version; a CUDA tensor never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -17,7 +23,6 @@ import torch
 
 from instance_nerf_tpu_torch.ops.boxes import aabb_volume
 
-KERNEL = "nms_sweep"
 SMEM_BYTES = 232448  # shared memory a block may use on sm_90 (227 KB)
 
 
@@ -85,7 +90,7 @@ def nms_boxes(sboxes: torch.Tensor, svalid: torch.Tensor,
         return keep if batched else keep[0]
     if k > SMEM_BYTES:  # one flag byte per box must fit in shared memory
         raise ValueError(f"K={k} exceeds the kernel's shared-memory flag budget")
-    lib = _lib()
+    lib = _lib("nms_sweep", "nms_sweep_launch")
     # structure of arrays (B, 7, K): lo xyz, hi xyz, volume as (dx*dy)*dz
     soa = torch.cat([boxes, aabb_volume(boxes)[..., None]], -1)
     soa = soa.transpose(1, 2).contiguous()
@@ -104,14 +109,84 @@ def nms_boxes(sboxes: torch.Tensor, svalid: torch.Tensor,
 nms_boxes.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
+def _check_iou(iou: torch.Tensor, svalid: torch.Tensor) -> None:
+    if iou.dtype != torch.float32:
+        raise TypeError(f"iou must be float32, got {iou.dtype}")
+    if iou.dim() not in (2, 3) or iou.shape[-1] != iou.shape[-2]:
+        raise ValueError(f"iou must be (K, K) or (B, K, K), got {tuple(iou.shape)}")
+    if svalid.shape != iou.shape[:-1]:
+        raise ValueError(f"svalid shape {tuple(svalid.shape)} does not match "
+                         f"iou {tuple(iou.shape)}")
+    if svalid.device != iou.device:
+        raise ValueError("iou and svalid are on different devices")
+
+
+def nms_sweep_plain(iou: torch.Tensor, svalid: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """Sequential greedy sweep in PyTorch over a ``(.., K, K)`` score-ordered
+    IoU matrix and ``(.., K)`` bool -> ``(.., K)`` bool keep: box i is kept
+    iff it is valid and no earlier kept box j has ``iou[j, i] > thr`` (in
+    f32)."""
+    _check_iou(iou, svalid)
+    batched = iou.dim() == 3
+    m = iou if batched else iou[None]
+    sup = ~(svalid if batched else svalid[None]).to(torch.bool)
+    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=m.device)
+    for i in range(m.shape[1] - 1):
+        alive = ~sup[:, i]  # (B,)
+        sup[:, i + 1:] |= alive[:, None] & (m[:, i, i + 1:] > thr)
+    keep = ~sup
+    return keep if batched else keep[0]
+
+
+def nms_sweep(iou: torch.Tensor, svalid: torch.Tensor,
+              iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS sweep over a score-ordered IoU matrix -> bool keep.
+
+    ``iou`` is ``(K, K)`` or ``(B, K, K)`` float32 (B independent problems),
+    ``svalid`` the matching ``(K,)`` / ``(B, K)`` bool mask. A CUDA tensor
+    launches kernel B2 (and counts one launch); a CPU tensor runs
+    ``nms_sweep_plain``."""
+    _check_iou(iou, svalid)
+    if iou.device.type == "cpu":
+        return nms_sweep_plain(iou, svalid, iou_threshold)
+    if iou.device.type != "cuda":
+        raise ValueError(f"unsupported device {iou.device}")
+    if not iou.is_contiguous() or not svalid.is_contiguous():
+        raise ValueError("iou and svalid must be contiguous")
+    batched = iou.dim() == 3
+    b, k = (iou.shape[0] if batched else 1), iou.shape[-1]
+    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
+    if b == 0 or k == 0:
+        return keep if batched else keep[0]
+    if k > SMEM_BYTES:  # one flag byte per box must fit in shared memory
+        raise ValueError(f"K={k} exceeds the kernel's shared-memory flag budget")
+    lib = _lib("nms_sweep_iou", "nms_sweep_iou_launch")
+    valid_u8 = svalid.to(torch.uint8).contiguous()
+    with torch.cuda.device(iou.device):
+        stream = torch.cuda.current_stream(iou.device).cuda_stream
+        err = lib.nms_sweep_iou_launch(
+            iou.data_ptr(), valid_u8.data_ptr(), ctypes.c_float(iou_threshold),
+            b, k, keep.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_sweep_iou launch failed: CUDA error {err}")
+    nms_sweep.launches += 1
+    return keep if batched else keep[0]
+
+
+nms_sweep.launches = 0
+
+
+def _lib(name: str, launch: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its launch function typed:
+    (float*, uint8*, float thr, int batch, int k, uint8*, stream) -> int."""
     from instance_nerf_tpu_torch.kernels import build
 
-    lib = build.load(KERNEL)
-    if not getattr(lib, "_nms_typed", False):
-        lib.nms_sweep_launch.argtypes = [
+    lib = build.load(name)
+    fn = getattr(lib, launch)
+    if fn.argtypes is None:
+        fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.nms_sweep_launch.restype = ctypes.c_int
-        lib._nms_typed = True
+        fn.restype = ctypes.c_int
     return lib

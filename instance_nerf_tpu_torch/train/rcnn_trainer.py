@@ -7,15 +7,12 @@ CPU; with no CUDA device it raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import rcnn_params_from_jax, unflatten_npz
@@ -29,6 +26,7 @@ from instance_nerf_tpu_torch.models.rcnn import (
     postprocess_detections,
 )
 from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm, Linear
+from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
 
 
 @dataclass
@@ -94,7 +92,7 @@ class RCNNTrainer:
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
         if cfg.bbox_type != "aabb":
-            raise NotImplementedError("OBB RCNN comes with slice 2")
+            raise NotImplementedError("OBB RCNN comes with slice 3 (eval and FCOS)")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -108,23 +106,8 @@ class RCNNTrainer:
                                dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
-        # name -> [(start, end) CUDA events], filled while ``profile`` runs
-        self._stage_events = None
-
-    @contextlib.contextmanager
-    def _stage(self, name):
-        """A ``predict_scene`` stage: a profiler range ``rcnn.<name>``, and
-        CUDA events around it while ``profile`` collects stage times."""
-        with record_function(f"rcnn.{name}"):
-            if self._stage_events is None:
-                yield
-                return
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._stage_events.setdefault(name, []).append((start, end))
+        # ``predict_scene``'s stages: profiler ranges ``rcnn.<name>``
+        self._stage = Stages("rcnn")
 
     # -- state ----------------------------------------------------------------
 
@@ -213,88 +196,17 @@ class RCNNTrainer:
         """``predict_scene`` at ``shape`` timed with CUDA events: median and
         mean ms over ``reps`` warmed runs, and peak device memory."""
         grid_t, rois = self._card_inputs(shape)
-        t0 = time.perf_counter()
-        for _ in range(warmup):
-            self.predict_scene(grid_t, rois)
-        torch.cuda.synchronize(self.device)
-        warm_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats(self.device)
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            det, masks = self.predict_scene(grid_t, rois)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return {
-            "median_ms": float(np.median(times)),
-            "mean_ms": float(np.mean(times)),
-            "min_ms": float(np.min(times)),
-            "reps": reps,
-            "warmup_s": warm_s,
-            "peak_mem_bytes": int(torch.cuda.max_memory_allocated(self.device)),
-            "detections": int(det.valid.sum()),
-            "mask_shape": list(masks.shape),
-            "device": torch.cuda.get_device_name(self.device),
-        }
+        out = benchmark_ms(lambda: self.predict_scene(grid_t, rois), self.device,
+                           reps=reps, warmup=warmup)
+        det, masks = self.predict_scene(grid_t, rois)
+        out.update(detections=int(det.valid.sum()), mask_shape=list(masks.shape))
+        return out
 
     def profile(self, reps=5, shape=(200, 200, 132), warmup=2, top=12):
-        """Where ``predict_scene``'s time goes, in ms per run: each stage's
-        span on the device (CUDA events, no profiler attached), then
-        ``torch.profiler`` over ``reps`` more runs for the device time of
-        the top kernels, the launch count and the device's busy share of
-        the unprofiled wall time."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as torch_profile
-
+        """Where ``predict_scene``'s time goes (``train/timing.py:profile_ms``)."""
         grid_t, rois = self._card_inputs(shape)
-        for _ in range(warmup):
-            self.predict_scene(grid_t, rois)
-        torch.cuda.synchronize(self.device)
-        self._stage_events, walls = {}, []
-        try:
-            for _ in range(reps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                self.predict_scene(grid_t, rois)
-                end.record()
-                end.synchronize()
-                walls.append(start.elapsed_time(end))
-            stages = {k: float(np.median([s.elapsed_time(e) for s, e in v]))
-                      for k, v in self._stage_events.items()}
-        finally:
-            self._stage_events = None
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.predict_scene(grid_t, rois)
-            torch.cuda.synchronize(self.device)
-
-        def self_dev_ms(e):  # the attribute was cuda_* before torch 2.4
-            t = getattr(e, "self_device_time_total", None)
-            return (t if t is not None else e.self_cuda_time_total) / 1e3 / reps
-
-        kernels = sorted(((self_dev_ms(e), e.key, e.count // reps)
-                          for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA
-                          and not e.key.startswith("rcnn.")), reverse=True)
-        busy_ms = sum(k[0] for k in kernels)
-        wall_ms = float(np.median(walls))
-        return {
-            "wall_ms_median": wall_ms,
-            "stages_ms_median": stages,
-            "device_kernel_ms_per_run": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "kernel_launches_per_run": sum(k[2] for k in kernels),
-            "nms_sweep_ms": sum(ms for ms, n, _ in kernels if "nms_sweep" in n),
-            "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
-                            for ms, n, c in kernels[:top]],
-            "device": torch.cuda.get_device_name(self.device),
-        }
+        return profile_ms(lambda: self.predict_scene(grid_t, rois), self.device,
+                          self._stage, reps=reps, warmup=warmup, top=top)
 
     def _card_inputs(self, shape):
         if self.device.type != "cuda":

@@ -1,6 +1,6 @@
 """Import hygiene of the PyTorch port: no module of ``instance_nerf_tpu_torch``
 and not ``chip_smoke.py`` may import JAX, flax or the JAX package; entry
-points run on the card unless asked for the CPU; the kernel wrapper takes a
+points run on the card unless asked for the CPU; the kernel wrappers take a
 CPU tensor to the plain version without counting a launch."""
 import ast
 import os
@@ -40,7 +40,10 @@ def test_port_has_every_slice_module():
     for m in ("convert", "ops.boxes", "ops.coders", "ops.nms", "ops.roi_align",
               "ops.poolers", "ops.mask_paste", "kernels.nms_cuda", "kernels.build",
               "models.layers", "models.fpn", "models.backbones", "models.rcnn",
-              "train.rcnn_trainer", "cli.run_rcnn"):
+              "train.rcnn_trainer", "cli.run_rcnn",
+              # slice 2: rotated anchor NeRF-RPN inference
+              "ops.rotated_iou", "models.rpn", "train.rpn_trainer", "train.timing",
+              "cli.run_rpn"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -81,15 +84,22 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_refuse_to_fall_back_to_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    from instance_nerf_tpu_torch.cli import run_rcnn
+    from instance_nerf_tpu_torch.cli import run_rcnn, run_rpn
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
 
     with pytest.raises(RuntimeError, match="CUDA"):
         RCNNTrainer()
     with pytest.raises(RuntimeError, match="CUDA"):
+        RPNTrainer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RPNTrainer(RPNConfig(rotated_bbox=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
         instance_nerf_tpu_torch.default_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_rcnn.main(["--mode", "check_arch"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_rpn.main(["--mode", "check_arch", "--rotated_bbox"])
 
 
 def test_nms_boxes_on_cpu_runs_plain_without_counting():
@@ -101,6 +111,25 @@ def test_nms_boxes_on_cpu_runs_plain_without_counting():
     assert keep.tolist() == [True, False, True]
     assert torch.equal(keep, nms_cuda.nms_boxes_plain(boxes, valid, 0.5))
     assert nms_cuda.nms_boxes.launches == before
+
+
+def test_nms_sweep_on_cpu_runs_plain_without_counting():
+    before = nms_cuda.nms_sweep.launches
+    iou = torch.tensor([[1.0, 0.8, 0.1], [0.8, 1.0, 0.9], [0.1, 0.9, 1.0]])
+    valid = torch.ones(3, dtype=torch.bool)
+    keep = nms_cuda.nms_sweep(iou, valid, 0.7)
+    assert keep.tolist() == [True, False, True]  # box 1 suppressed, so 2 survives
+    assert torch.equal(keep, nms_cuda.nms_sweep_plain(iou, valid, 0.7))
+    assert nms_cuda.nms_sweep.launches == before
+
+
+def test_rpn_cli_modes_of_later_slices_raise():
+    from instance_nerf_tpu_torch.cli import run_rpn
+
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        run_rpn.main(["--mode", "train", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        run_rpn.main(["--mode", "eval", "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
