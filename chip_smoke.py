@@ -29,7 +29,32 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    Reports the time by stage.
 8. ``small_reference_rpn``: the RPN in f32 on a small input, rotated and
    AABB, card against the port's CPU reference.
-9. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
+9. ``slice_field`` (main path of slice 3): instance-field training through
+   ``InstanceFieldTrainer.train`` at the JAX CLI's default model (hash
+   encoding, 16 levels, T = 2^19, F = 2, resolutions 16..1024, width 64,
+   33 instances, 4096 rays x 128 candidates of which 32 are queried,
+   occupancy 128^3 refreshed every 16 steps, f32) with ``pallas_grad``
+   (the table gradient is kernel B3), seeded random weights and a synthetic
+   scene: 64 rgb steps (B3 launched on every one), one step's table
+   gradient against the plain scatter, 32 instance steps (nothing outside
+   ``inst_*`` may move), a rendered view whose PSNR must have risen, then
+   ``benchmark_train`` of both stages and the step's stage profile.
+10. ``slice_field_fast``: the same, shorter, for the JAX package's benchmark
+   field (brick encoding, 3 levels x 4 features, T = 2^15, coarse occupancy
+   32^3, bf16 MLPs), with the bf16 run against an f32 run on the card.
+11. ``kernel_scatter``: kernel B3 against its plain version on random,
+   collision-heavy, odd-N, clamping, replica and multi-level inputs, at
+   the two shapes of the JAX package's scatter probes (B6) and on the index
+   streams of the two slices' own steps (all levels, and levels 0 and 15
+   of the main config); times the kernel, the plain version and
+   ``index_add_``.
+12. ``kernel_coarse_occ``: kernel B5 on the fast config's own sample points,
+   equal to its plain version and to the renderer's
+   ``coarse_occupancy_mxu``; times.
+13. ``small_reference_field``: a small f32 field, card against the port's
+   CPU run from the same weights, rays and draws: losses, gradients and
+   params over rgb -> instance -> rgb.
+14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
    launches on its path, error, times and bound.
 
 Before each main path every launch count is set to 0 and it is read just
@@ -54,6 +79,8 @@ PEAK_F32_OPS_PER_S = 67e12
 # operations per box pair in the NMS IoU test: per axis min, max, sub,
 # max-with-0 (12), two products, add and subtract, divide, compare
 NMS_OPS_PER_PAIR = 18
+# the synthetic scene of the field slices: 16 orbit views at 128 x 128
+FIELD_SCENE = dict(n_views=16, hw=(128, 128), n_blobs=3)
 
 
 def emit(obj) -> None:
@@ -93,18 +120,21 @@ def random_sorted_boxes(rng, shape, size, p_valid=0.9):
     return boxes, valid
 
 
-def zero_launches() -> None:
-    from instance_nerf_tpu_torch.kernels import nms_cuda
+def _counted():
+    from instance_nerf_tpu_torch.kernels import coarse_occ_cuda, nms_cuda, scatter_cuda
 
-    nms_cuda.nms_boxes.launches = 0
-    nms_cuda.nms_sweep.launches = 0
+    return {"nms_boxes": nms_cuda.nms_boxes, "nms_sweep": nms_cuda.nms_sweep,
+            "scatter_add": scatter_cuda.scatter_add,
+            "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup}
+
+
+def zero_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from instance_nerf_tpu_torch.kernels import nms_cuda
-
-    return {"nms_boxes": nms_cuda.nms_boxes.launches,
-            "nms_sweep": nms_cuda.nms_sweep.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def phase_env():
@@ -121,7 +151,7 @@ def phase_build():
     from instance_nerf_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build_all(["nms_sweep", "nms_sweep_iou"])
+    build.build_all(build.SOURCES)
     info = {n: {"seconds": round(v["seconds"], 3),
                 "ptxas": [l for l in v["ptxas"].splitlines() if "registers" in l
                           or "spill" in l]}
@@ -525,6 +555,409 @@ def phase_small_reference_rpn():
         raise AssertionError("; ".join(failed))
 
 
+def psnr(img, ref) -> float:
+    return float(-10.0 * np.log10(max(float(np.mean((img - ref) ** 2)), 1e-10)))
+
+
+class LaunchRecorder:
+    """Records the inputs and output of every scatter-add kernel launch
+    (``scatter_cuda._launch``) while it is installed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from instance_nerf_tpu_torch.kernels import scatter_cuda
+
+        self._orig = orig = scatter_cuda._launch
+
+        def launch(indices, updates, n_levels, trailing, rows, replicas):
+            out = orig(indices, updates, n_levels, trailing, rows, replicas)
+            self.calls.append((indices.clone(), updates.clone(), n_levels, trailing, rows,
+                               out.clone()))
+            return out
+
+        scatter_cuda._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from instance_nerf_tpu_torch.kernels import scatter_cuda
+
+        scatter_cuda._launch = self._orig
+
+
+def scatter_bound_ms(n, w, rows):
+    """Least time for a scatter-add: the updates (4 B a float) and indices
+    (4 B) read once, the table zeroed and written once, at 3.35 TB/s (its
+    n * w adds at 67 TFLOP/s take far less)."""
+    byte_s = (n * w * 4 + n * 4 + 2 * rows * w * 4) / PEAK_BYTES_PER_S
+    ops_s = n * w / PEAK_F32_OPS_PER_S
+    return max(byte_s, ops_s) * 1e3, "bytes" if byte_s > ops_s else "operations"
+
+
+def check_scatter(name, idx, upd, rows, n_levels=1, trailing=1, replicas=1, tol=1e-5,
+                  mag_rtol=None, timed=False, library=True):
+    """Kernel B3 against its plain version on the card (and, timed, the
+    kernel, the plain version and ``index_add_`` into a zeroed table).
+    Held to ``tol`` absolute, or with ``mag_rtol`` to that share of each
+    entry's sum of |updates| (f32 summation error grows with it)."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels import scatter_cuda
+
+    def kernel():
+        return scatter_cuda._launch(idx, upd, n_levels, trailing, rows, replicas)
+
+    def plain():
+        return scatter_cuda.level_scatter_add_plain(idx, upd, n_levels, trailing, rows)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    out = {"case": name, "n": int(idx.shape[0]), "w": int(upd.shape[1]),
+           "rows": n_levels * rows, "levels": n_levels, "trailing": trailing,
+           "replicas": replicas, "max_abs_err": err}
+    if mag_rtol is None:
+        out["tolerance"] = tol
+        bad = err > tol
+    else:
+        mag = scatter_cuda.level_scatter_add_plain(idx, upd.abs(), n_levels, trailing, rows)
+        ratio = torch.where(mag > 0, diff / mag.clamp_min(1e-30), diff)
+        out["max_err_per_abs_sum"] = float(ratio.max()) if got.numel() else 0.0
+        out["tolerance_per_abs_sum"] = mag_rtol
+        bad = out["max_err_per_abs_sum"] > mag_rtol
+    if bad:
+        raise AssertionError(f"scatter_add kernel disagrees with its plain version: {out}")
+    if timed:
+        idx_l = idx.long()
+        out["ms"] = cuda_ms(kernel, reps=20)
+        out["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+        out["library_ms"] = (cuda_ms(lambda: torch.zeros_like(want).index_add_(0, idx_l, upd),
+                                     reps=20) if library else None)
+        out["bound_ms"], out["bound_by"] = scatter_bound_ms(idx.shape[0], upd.shape[1],
+                                                            n_levels * rows)
+    return out
+
+
+def level_stream(idx, upd, n_levels, trailing, rows, level):
+    """The updates of one level of a multi-level gradient, rebased to
+    ``[0, rows)``."""
+    import torch
+
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    sel = (pos // trailing) % n_levels == level
+    return (idx[sel] - level * rows).contiguous(), upd[sel].contiguous()
+
+
+def train_and_check(cfg, label, rgb_steps, inst_steps, bench_reps):
+    """The field slice's main path for one config: train ``rgb_steps`` rgb
+    steps (the launch counts zeroed just before and read just after; B3
+    must launch on every step), check one step's table gradient against
+    the plain scatter, train ``inst_steps`` instance steps (only ``inst_*``
+    may move), render a view (PSNR must rise), then benchmark and profile.
+    Returns the report, the trainer, the scene and the step's recorded B3
+    launch."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.kernels import scatter_cuda
+    from instance_nerf_tpu_torch.train.ngp_trainer import InstanceFieldTrainer
+
+    scene, _ = make_synthetic_nerf_scene(np.random.default_rng(0), device="cuda",
+                                         **FIELD_SCENE)
+    trainer = InstanceFieldTrainer(cfg, seed=0, device="cuda")
+    view = trainer.render_image(scene.poses[0], scene.intrinsics, scene.hw)
+    psnr0 = psnr(view["rgb"], scene.images[0])
+
+    # the main path: counts zeroed just before, read just after
+    zero_launches()
+    t0 = time.perf_counter()
+    m_rgb = trainer.train(scene, rgb_steps, stage="rgb", log_every=0)
+    torch.cuda.synchronize()
+    rgb_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["scatter_add"] != rgb_steps:
+        raise AssertionError(f"{label}: B3 launched {launches['scatter_add']} times in "
+                             f"{rgb_steps} rgb steps")
+
+    # one step's table gradient, kernel against the plain scatter-add
+    o, d, rgb, inst = trainer._batch(scene, torch.as_tensor(scene.poses, device="cuda"))
+    with LaunchRecorder() as rec:
+        _, grads = trainer.loss_and_grads("rgb", o, d, rgb, inst)
+    table = "hash_table" if cfg.encoding == "hash" else "brick_table"
+    idx, upd, n_levels, trailing, rows, out = rec.calls[0]
+    g = grads[table].reshape(out.shape)
+    plain = scatter_cuda.level_scatter_add_plain(idx, upd, n_levels, trailing, rows)
+    g_err = float((g - plain).abs().max())
+    g_scale = float(plain.abs().max())
+    if not torch.equal(g, out) or g_err > 1e-5 * g_scale:
+        raise AssertionError(f"{label}: table gradient differs from the plain scatter by "
+                             f"{g_err} (largest entry {g_scale})")
+    del grads, g
+
+    zero_launches()
+    before = {k: v.detach().clone() for k, v in trainer.params.items()}
+    m_inst = trainer.train(scene, inst_steps, stage="instance", log_every=0)
+    torch.cuda.synchronize()
+    inst_launches = read_launches()
+    moved = sorted(k for k, v in trainer.params.items() if not torch.equal(v, before[k]))
+    if not moved or any(not k.startswith("inst_") for k in moved):
+        raise AssertionError(f"{label}: the instance stage moved {moved}")
+    del before
+
+    view = trainer.render_image(scene.poses[0], scene.intrinsics, scene.hw)
+    psnr1 = psnr(view["rgb"], scene.images[0])
+    if not (np.isfinite(view["rgb"]).all() and view["rgb"].shape == (*scene.hw, 3)
+            and view["instance"].shape == scene.hw):
+        raise AssertionError(f"{label}: rendered view {view['rgb'].shape} not finite")
+    if not psnr1 > psnr0:
+        raise AssertionError(f"{label}: PSNR did not rise ({psnr0} -> {psnr1})")
+    feats = trainer.extract_rgbsigma(32)
+    if feats.shape != (32, 32, 32, 4) or not np.isfinite(feats).all():
+        raise AssertionError(f"{label}: extract_rgbsigma {feats.shape}")
+    if not all(np.isfinite(v) for v in (*m_rgb.values(), *m_inst.values())):
+        raise AssertionError(f"{label}: non-finite losses {m_rgb} {m_inst}")
+
+    bench = {stage: trainer.benchmark_train(reps=bench_reps, stage=stage)
+             for stage in ("rgb", "instance")}
+    prof = trainer.profile(scene, stage="rgb", reps=5)
+    report = {"launches_rgb": launches, "launches_instance": inst_launches,
+              "rgb_steps": rgb_steps, "instance_steps": inst_steps,
+              "train_rgb_s": rgb_s, "losses_rgb": m_rgb, "losses_instance": m_inst,
+              "table_grad_vs_plain_max_abs_err": g_err, "table_grad_max_abs": g_scale,
+              "moved_in_instance_stage": moved, "psnr_view0_before": psnr0,
+              "psnr_view0_after": psnr1, "benchmark": bench, "profile": prof}
+    return report, trainer, scene, (idx, upd, n_levels, trailing, rows)
+
+
+def phase_slice_field():
+    import torch
+
+    from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig
+
+    cfg = NGPConfig(k_occupied=32, pallas_grad=True)
+    report, trainer, scene, step = train_and_check(cfg, "slice_field", rgb_steps=64,
+                                                   inst_steps=32, bench_reps=20)
+    emit({"phase": "slice_field", "config": "NGPConfig(k_occupied=32, pallas_grad=True)",
+          "encoding": "hash", "levels": cfg.n_levels, "table_size": cfg.table_size,
+          "features": cfg.n_features, "resolutions": [int(r) for r in
+                                                      trainer.model.resolutions],
+          "n_rays": cfg.n_rays, "n_samples": cfg.n_samples, "k_occupied": cfg.k_occupied,
+          "occ_res": cfg.occ_res, "dtype": cfg.dtype, "scene": FIELD_SCENE, **report})
+    del trainer, scene
+    torch.cuda.empty_cache()
+    return report["launches_rgb"], step
+
+
+def phase_slice_field_fast():
+    import torch
+
+    from instance_nerf_tpu_torch.models.render import (
+        coarse_cells,
+        ray_aabb,
+        sample_points,
+        update_occupancy,
+    )
+    from instance_nerf_tpu_torch.train.ngp_trainer import InstanceFieldTrainer, fast_ngp_config
+
+    kw = dict(k_occupied=32, occ_coarse_res=32, table_size=2 ** 15, n_levels=3, n_features=4,
+              pallas_grad=True)
+    cfg = fast_ngp_config(**kw)
+    report, trainer, scene, step = train_and_check(cfg, "slice_field_fast", rgb_steps=32,
+                                                   inst_steps=16, bench_reps=20)
+
+    # bf16 MLPs against the same field in f32, on one batch with one draw
+    poses = torch.as_tensor(scene.poses, device="cuda")
+    o, d, rgb, inst = trainer._batch(scene, poses)
+    jitter = torch.rand((cfg.n_rays, cfg.n_samples), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    f32 = InstanceFieldTrainer(fast_ngp_config(**kw, dtype="float32"), seed=0, device="cuda")
+    f32.model.load_state_dict(trainer.model.state_dict())
+    f32.occ = trainer.occ
+    with torch.no_grad():
+        out16 = trainer.render(o, d, with_instance=True, jitter=jitter)
+        out32 = f32.render(o, d, with_instance=True, jitter=jitter)
+    bf16 = {"rgb_max_abs_diff": float((out16.rgb - out32.rgb).abs().max()),
+            "rgb_mean_abs_diff": float((out16.rgb - out32.rgb).abs().mean()),
+            "acc_max_abs_diff": float((out16.acc - out32.acc).abs().max()),
+            "tolerance_max_abs": 0.05}
+    if bf16["rgb_max_abs_diff"] > 0.05 or bf16["acc_max_abs_diff"] > 0.05:
+        raise AssertionError(f"bf16 field departs from the f32 field: {bf16}")
+    del f32
+
+    # B5's inputs: the coarse cells of this config's own candidate samples
+    with torch.no_grad():
+        near, far = ray_aabb(o, d)
+        far = torch.maximum(far, near + 1e-4)
+        xyz, _, _ = sample_points(o, d, cfg.n_samples, near, far, generator=trainer.gen)
+        xyz_c = torch.clamp(xyz, 0.0, 1.0)
+        # the field's own density at jittered cell centers (no EMA): a grid
+        # with empty space, beside the path's grid, still fully occupied
+        dens = update_occupancy(trainer.occ, trainer.sigma, generator=trainer.gen, decay=0.0)
+    b5_inputs = (coarse_cells(xyz_c, cfg.occ_coarse_res), xyz_c, cfg.occ_coarse_res,
+                 {"path_grid": trainer.occ, "field_density": dens})
+    emit({"phase": "slice_field_fast", "config": f"fast_ngp_config({kw})", "encoding": "fast",
+          "n_rays": cfg.n_rays, "n_samples": cfg.n_samples, "dtype": cfg.dtype,
+          "scene": FIELD_SCENE, "bf16_vs_f32": bf16, **report})
+    del trainer, scene
+    torch.cuda.empty_cache()
+    return report["launches_rgb"], step, b5_inputs
+
+
+def phase_kernel_scatter(main_step, fast_step):
+    """B3 against its plain version on synthetic cases, the B6 probe shapes
+    and the slices' own index streams; returns the timed cases."""
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def rand(n, t, w, lo=0):
+        idx = torch.as_tensor(rng.integers(lo, t, n).astype(np.int32), device=dev)
+        upd = torch.as_tensor(rng.normal(size=(n, w)).astype(np.float32), device=dev)
+        return idx, upd
+
+    cases = []
+    # the shapes and tolerances of tests/test_scatter_pallas.py (unit-normal
+    # updates, 8 per row; ~256 per row at T = 64), then a large one held
+    # relative to its largest entry
+    cases.append(check_scatter("random", *rand(32768, 4096, 16), 4096))
+    cases.append(check_scatter("collision_heavy_t64", *rand(16384, 64, 8), 64, tol=2e-4))
+    cases.append(check_scatter("replicas_4", *rand(16384, 1024, 16), 1024, replicas=4))
+    cases.append(check_scatter("odd_n_1000", *rand(1000, 512, 4), 512))
+    cases.append(check_scatter("clamp", *rand(4099, 70, 3, lo=-30), 40, mag_rtol=1e-5))
+    cases.append(check_scatter("random_1M", *rand(2 ** 20, 2 ** 16, 16), 2 ** 16, mag_rtol=1e-5))
+    hash_idx = (torch.as_tensor(rng.integers(-20, 276, (4096, 3, 8)), device=dev)
+                + torch.arange(3, device=dev).view(1, 3, 1) * 256)
+    hash_upd = torch.as_tensor(rng.normal(size=(4096 * 24, 2)).astype(np.float32), device=dev)
+    cases.append(check_scatter("levels_hash_layout", hash_idx.reshape(-1).to(torch.int32),
+                               hash_upd, 256, n_levels=3, trailing=8, mag_rtol=1e-5))
+    timed = {
+        # the two shapes of examples/probe9_scatter_variants.py (B6)
+        "probe9_n131072_w16": check_scatter("probe9_n131072_w16", *rand(131072, 2 ** 15, 16),
+                                            2 ** 15, timed=True),
+        "probe9_n65536_w32": check_scatter("probe9_n65536_w32", *rand(65536, 2 ** 15, 32),
+                                           2 ** 15, timed=True),
+    }
+    idx, upd, n_levels, trailing, rows = main_step
+    timed["main_all_levels"] = check_scatter("main_all_levels", idx, upd, rows, n_levels,
+                                             trailing, mag_rtol=1e-5, timed=True)
+    for lvl in (0, n_levels - 1):
+        li, lu = level_stream(idx, upd, n_levels, trailing, rows, lvl)
+        name = f"main_level_{lvl}"
+        timed[name] = check_scatter(name, li, lu, rows, mag_rtol=1e-5, timed=True)
+        timed[name]["distinct_rows"] = int(torch.unique(li).numel())
+    idx, upd, n_levels, trailing, rows = fast_step
+    timed["fast_all_levels"] = check_scatter("fast_all_levels", idx, upd, rows, n_levels,
+                                             trailing, mag_rtol=1e-5, timed=True)
+    emit({"phase": "kernel_scatter", "cases": cases, "timed": timed})
+    return timed
+
+
+def phase_kernel_coarse_occ(b5_inputs):
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.coarse_occ_cuda import (
+        coarse_occ_lookup,
+        coarse_occ_lookup_plain,
+    )
+    from instance_nerf_tpu_torch.models.render import (
+        OccupancyGrid,
+        coarse_grid,
+        coarse_occupancy_mxu,
+    )
+
+    cells, xyz_c, cr, occs = b5_inputs
+    rng = np.random.default_rng(6)
+    # fine cells occupied with p such that 30% of the coarse cells are
+    res = occs["path_grid"].res
+    p_fine = 1.0 - 0.7 ** (1.0 / (res // cr) ** 3)
+    fine = np.where(rng.uniform(size=(res,) * 3) < p_fine, 1.0, 0.0)
+    occs["random_30pct"] = OccupancyGrid(torch.as_tensor(fine, dtype=torch.float32,
+                                                         device="cuda"), 0.01)
+    cases = {}
+    for name, occ in occs.items():
+        grid = coarse_grid(occ, cr)
+        got = coarse_occ_lookup(cells, grid)
+        want = coarse_occ_lookup_plain(cells, grid)
+        mxu = coarse_occupancy_mxu(occ, xyz_c, cr).reshape(-1)
+        odd = coarse_occ_lookup(cells[:1001], grid)  # no block-multiple contract
+        torch.cuda.synchronize()
+        mismatches = (int((got != want).sum()) + int((got != mxu).sum())
+                      + int((odd != want[:1001]).sum()))
+        cases[name] = {"grid_occupied_share": float(grid.float().mean()),
+                       "samples_occupied_share": float(got.mean()), "mismatches": mismatches}
+        if mismatches:
+            raise AssertionError(f"coarse_occ kernel disagrees on {name}: {cases[name]}")
+    grid = coarse_grid(occs["field_density"], cr)
+    n, r = int(cells.shape[0]), int(grid.shape[0])
+    cl = cells.long()
+    byte_s = (n * 12 + r ** 3 + n * 4) / PEAK_BYTES_PER_S
+    timing = {
+        "ms": cuda_ms(lambda: coarse_occ_lookup(cells, grid), reps=100),
+        "plain_ms": cuda_ms(lambda: coarse_occ_lookup_plain(cells, grid), reps=20),
+        "library_ms": cuda_ms(lambda: grid[cl[:, 0], cl[:, 1], cl[:, 2]], reps=100),
+        "renderer_ms": cuda_ms(lambda: coarse_occupancy_mxu(occs["field_density"], xyz_c, cr),
+                               reps=20),
+        "bound_ms": byte_s * 1e3, "bound_by": "bytes",
+    }
+    emit({"phase": "kernel_coarse_occ", "n": n, "coarse_res": r, "grids": cases, **timing})
+    return {"n": n, "coarse_res": r, **timing}
+
+
+def phase_small_reference_field():
+    """f32 on the card against the port's CPU run: the same seeded weights,
+    rays, draws and random occupancy; rgb -> instance -> rgb."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.models.render import OccupancyGrid
+    from instance_nerf_tpu_torch.train.ngp_trainer import (
+        InstanceFieldTrainer,
+        NGPConfig,
+        rays_multi,
+    )
+
+    cfg = NGPConfig(n_levels=4, table_size=2 ** 12, max_res=64, hidden=16, num_instances=5,
+                    n_rays=256, n_samples=32, k_occupied=8, occ_res=16, pallas_grad=True)
+    scene, _ = make_synthetic_nerf_scene(np.random.default_rng(0), n_views=4, hw=(24, 24),
+                                         n_blobs=2)
+    occ = np.where(np.random.default_rng(1).uniform(size=(16,) * 3) < 0.5, 1e3, 0.0)
+    rng = np.random.default_rng(2)
+    batches = [(*scene.ray_batch(rng, cfg.n_rays), rng.uniform(size=(cfg.n_rays, 32)))
+               for _ in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = InstanceFieldTrainer(cfg, seed=1, device=device)
+        tr.occ = OccupancyGrid(torch.as_tensor(occ, dtype=torch.float32, device=device), 0.01)
+        poses = torch.as_tensor(scene.poses, device=device)
+        losses, grads = [], []
+        for stage, (v, pix, rgb, inst, draw) in zip(("rgb", "instance", "rgb"), batches):
+            o, d = rays_multi(poses, v, pix, scene)
+            l, g = tr.loss_and_grads(stage, o, d, rgb, inst,
+                                     jitter=torch.as_tensor(draw, dtype=torch.float32,
+                                                            device=device))
+            tr.apply_grads(stage, g)
+            losses.append({k: float(x) for k, x in l.items()})
+            grads.append({k: x.cpu() for k, x in g.items() if x is not None})
+        runs[device] = (losses, grads, {k: v.detach().cpu() for k, v in tr.params.items()})
+    (lc, gc, pc), (lp, gp, pp) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(lc, lp) for k in b)
+    grad_err = max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+                   for a, b in zip(gc, gp) for k in b)
+    diff = {k: (pc[k] - pp[k]).abs() for k in pp}
+    off = sum(int((v > 1e-6).sum()) for v in diff.values())
+    total = sum(v.numel() for v in diff.values())
+    report = {"phase": "small_reference_field", "dtype": "float32",
+              "max_rel_loss_err": loss_err, "max_grad_err_rel_to_largest": grad_err,
+              "params_off_by_more_than_1e-6": off, "params_total": total,
+              "params_max_abs_diff": max(float(v.max()) for v in diff.values())}
+    emit(report)
+    if loss_err > 1e-5 or grad_err > 1e-4 or off > 1e-3 * total:
+        raise AssertionError(f"f32 card field disagrees with the CPU run: {report}")
+
+
 def main():
     import torch
 
@@ -568,6 +1001,15 @@ def main():
     kept = int(keep_k.sum())
     phase_small_reference_rpn()
 
+    launches_field, main_step = phase_slice_field()
+    launches_fast, fast_step, b5_inputs = phase_slice_field_fast()
+    scat = phase_kernel_scatter(main_step, fast_step)
+    del main_step, fast_step
+    occ_t = phase_kernel_coarse_occ(b5_inputs)
+    del b5_inputs
+    phase_small_reference_field()
+
+    main_scat = scat["main_all_levels"]
     emit({"kernels": [{
         "name": "nms_boxes", "route": "cuda",
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep.cu",
@@ -586,6 +1028,28 @@ def main():
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
         "random_k4000": timing_iou["k4000"],
+    }, {
+        "name": "scatter_add", "route": "cuda",
+        "source": "instance_nerf_tpu_torch/csrc/scatter_add.cu",
+        "replaces": "instance_nerf_tpu/kernels/scatter_pallas.py:96",
+        "also_replaces": ["instance_nerf_tpu/kernels/scatter_pallas.py:158",
+                          "examples/probe9_scatter_variants.py:41"],
+        "launches": launches_field["scatter_add"],
+        "launches_fast": launches_fast["scatter_add"],
+        "max_abs_err": main_scat["max_abs_err"],
+        "ms": main_scat["ms"], "plain_ms": main_scat["plain_ms"],
+        "bound_ms": main_scat["bound_ms"], "bound_by": main_scat["bound_by"],
+        "library_ms": main_scat["library_ms"], "n": main_scat["n"], "w": main_scat["w"],
+        "rows": main_scat["rows"], "cases": scat,
+    }, {
+        "name": "coarse_occ_lookup", "route": "cuda",
+        "source": "instance_nerf_tpu_torch/csrc/coarse_occ.cu",
+        "replaces": "instance_nerf_tpu/kernels/coarse_occ_pallas.py:53",
+        "launches": launches_fast["coarse_occ_lookup"], "on_main_path": False,
+        "max_abs_err": 0.0, "ms": occ_t["ms"], "plain_ms": occ_t["plain_ms"],
+        "bound_ms": occ_t["bound_ms"], "bound_by": occ_t["bound_by"],
+        "library_ms": occ_t["library_ms"], "renderer_ms": occ_t["renderer_ms"],
+        "n": occ_t["n"], "coarse_res": occ_t["coarse_res"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

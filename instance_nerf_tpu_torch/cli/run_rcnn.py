@@ -3,8 +3,8 @@
 
 Modes in the port so far: ``check_arch``, ``benchmark`` and ``profile``
 (a ``torch.profiler`` split of ``predict_scene`` by stage and kernel).
-``eval`` needs the dataset and metrics modules (first in slice 3's
-queue) and ``train`` comes with slice 4; both raise
+``eval`` needs the dataset and metrics modules (first in slice 4's
+queue) and ``train`` comes with slice 5; both raise
 ``NotImplementedError``.
 
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode check_arch
@@ -90,10 +90,10 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(levelname)s %(message)s",
                         handlers=[logging.StreamHandler(sys.stdout)])
     if args.mode == "train":
-        raise NotImplementedError("--mode train comes with slice 4 (detector training)")
+        raise NotImplementedError("--mode train comes with slice 5 (detector training)")
     if args.mode == "eval":
         raise NotImplementedError(
-            "--mode eval needs the dataset and metrics modules, first in slice 3")
+            "--mode eval needs the dataset and metrics modules, first in slice 4")
 
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
 

@@ -4,7 +4,7 @@
 
 Modes in the port so far: ``check_arch``, ``benchmark`` and ``profile``
 (``predict_scene`` split by stage and kernel). ``eval`` (the proposal and
-feature export) comes with slice 3 and ``train`` with slice 4; both raise
+feature export) comes with slice 4 and ``train`` with slice 5; both raise
 ``NotImplementedError``.
 
     python -m instance_nerf_tpu_torch.cli.run_rpn --mode check_arch --device cpu --rotated_bbox
@@ -69,11 +69,11 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(levelname)s %(message)s",
                         handlers=[logging.StreamHandler(sys.stdout)])
     if args.mode == "train":
-        raise NotImplementedError("--mode train comes with slice 4 (detector training)")
+        raise NotImplementedError("--mode train comes with slice 5 (detector training)")
     if args.mode == "eval":
         raise NotImplementedError(
             "--mode eval (proposal and feature export) needs the dataset and "
-            "metrics modules, which come with slice 3")
+            "metrics modules, which come with slice 4")
 
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNTrainer
 

@@ -1,5 +1,6 @@
 """flax params tree (numpy leaves) -> a state dict of the port's
-``NeRF_RCNN`` or ``NeRFRegionProposalNetwork``.
+``NeRF_RCNN``, ``NeRFRegionProposalNetwork``, ``InstanceNGP`` or
+``InstanceNGPFast``.
 
 Mappings:
 
@@ -12,6 +13,8 @@ Mappings:
   **flipped spatially**: flax's ``nn.ConvTranspose`` (``transpose_kernel=
   False``) with k2 s2 SAME computes ``y[2i + a] = x[i] k[1 - a]`` where
   ``torch.nn.functional.conv_transpose3d`` computes ``x[i] w[a]``;
+* the field's tables (``hash_table``, ``brick_table``, ``dense_grid``)
+  carry over as they are;
 * module names: ``FPN_0`` -> ``fpn``, ``Conv_0`` -> ``conv``,
   ``GroupNorm_0`` -> ``norm``; every other name is kept.
 """
@@ -82,3 +85,18 @@ def rpn_params_from_jax(params) -> dict[str, torch.Tensor]:
     ``rpn_head/conv_i``, ``cls_logits`` and ``bbox_pred`` as plain 5-D
     convs (the same leaf mapping)."""
     return rcnn_params_from_jax(params)
+
+
+FIELD_TABLES = ("hash_table", "brick_table", "dense_grid")
+
+
+def ngp_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """Convert a flax ``InstanceNGP`` / ``InstanceNGPFast`` params tree to a
+    ``state_dict``: the tables as they are, each ``Dense`` (``sigma_0`` ...
+    ``inst_1``) as ``weight (out, in)`` and ``bias``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    tables = {k: torch.tensor(np.asarray(params[k], np.float32))
+              for k in FIELD_TABLES if k in params}
+    rest = {k: v for k, v in params.items() if k not in FIELD_TABLES}
+    return {**tables, **rcnn_params_from_jax(rest)}

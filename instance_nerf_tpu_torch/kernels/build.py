@@ -7,7 +7,8 @@ rebuilds and an unchanged one loads from the cache. Nothing is built when a
 module is imported.
 
 Division stays IEEE-rounded (no ``--use_fast_math``): the NMS keep
-decisions must match the plain PyTorch version bit for bit.
+decisions must match the plain PyTorch version bit for bit, and the
+scatter-add's f32 atomics must round as its plain version's adds do.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# every kernel source of the port, by name (csrc/<name>.cu)
+SOURCES = ("nms_sweep", "nms_sweep_iou", "scatter_add", "coarse_occ")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

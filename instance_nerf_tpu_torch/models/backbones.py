@@ -71,8 +71,8 @@ def build_backbone(backbone_type: str, input_size: int = 160,
                        conv_at_start=conv_at_start, dtype=dtype)
     if backbone_type == "resnet":
         raise NotImplementedError(
-            "the ResNet-FPN backbone comes with slice 3 (ROADMAP queue A)")
+            "the ResNet-FPN backbone comes with slice 4 (ROADMAP queue A)")
     if backbone_type.startswith("swin"):
         raise NotImplementedError(
-            "the Swin backbone comes with slice 3 (ROADMAP queue A)")
+            "the Swin backbone comes with slice 4 (ROADMAP queue A)")
     raise ValueError(f"Unknown backbone type: {backbone_type}")

@@ -1,0 +1,208 @@
+"""Multiresolution hash-grid NGP with an instance-logit head (PyTorch
+counterpart of ``instance_nerf_tpu.models.hashgrid``).
+
+``hash_encode`` fuses all L levels x 8 corners into ONE flat gather from
+the ``(L * T, F)`` table, as the JAX package does. With ``pallas_grad`` the
+table gradient runs through the hand-written scatter-add kernel
+(``kernels/scatter_cuda.py:gather_rows_kernel_grad``, kernel B3), else
+through torch's own ``index_select`` backward. The name ``pallas_grad`` is
+kept from the JAX config.
+
+The hash is the uint32 wraparound multiply, XOR, ``% T`` of the JAX
+package, computed in int64 with each product masked to 32 bits.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from instance_nerf_tpu_torch.kernels.scatter_cuda import gather_rows_kernel_grad
+from instance_nerf_tpu_torch.ops.nms import no_stage
+
+# spatial hash primes (Instant-NGP eq. 4 convention)
+HASH_PRIMES = np.array([1, 2654435761, 805459861], dtype=np.uint32)
+
+CORNER_OFFSETS = np.array(
+    [[dx, dy, dz] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
+    dtype=np.uint32,
+)  # (8, 3)
+
+_U32 = 0xFFFFFFFF
+
+
+def hash_cells(c: torch.Tensor, res: np.ndarray, table_size: int) -> torch.Tensor:
+    """Row of each integer cell ``c (..., L, [8,] 3)`` int64 in its level:
+    dense index where ``res^3 <= T`` (decided on the host), else the NGP
+    hash ``(x * p0) ^ (y * p1) ^ (z * p2) mod 2^32 % T``."""
+    res_np = np.asarray(res, np.int64)
+    extra = c.dim() - 2  # the level axis sits just before the corner/coord axes
+    shape = (len(res_np),) + (1,) * (extra - 1)
+    r = torch.as_tensor(res_np, device=c.device).view(shape)
+    cx, cy, cz = c[..., 0], c[..., 1], c[..., 2]
+    idx_dense = (cx * r + cy) * r + cz
+    p = [int(v) for v in HASH_PRIMES]
+    h = (cx * p[0] & _U32) ^ (cy * p[1] & _U32) ^ (cz * p[2] & _U32)
+    idx_hash = h % table_size
+    dense = torch.as_tensor(res_np ** 3 <= table_size, device=c.device).view(shape)
+    return torch.where(dense, idx_dense, idx_hash)
+
+
+def _level_flat(idx: torch.Tensor, n_levels: int, table_size: int) -> torch.Tensor:
+    """``(N, L, ...)`` per-level rows -> flat int32 rows of the ``(L * T, .)``
+    table."""
+    shape = (1, n_levels) + (1,) * (idx.dim() - 2)
+    off = (torch.arange(n_levels, device=idx.device) * table_size).view(shape)
+    return (idx + off).to(torch.int32).reshape(-1)
+
+
+def corner_weights(frac: torch.Tensor) -> torch.Tensor:
+    """Trilinear weights ``(M, 8)`` of the corner offsets from ``frac (M, 3)``."""
+    corners = torch.as_tensor(CORNER_OFFSETS.astype(bool), device=frac.device)
+    w = torch.where(corners[None], frac[:, None, :], 1.0 - frac[:, None, :])
+    return w[..., 0] * w[..., 1] * w[..., 2]
+
+
+def gather_rows(table2d, flat, n_levels, trailing, pallas_grad, replicas=1):
+    if pallas_grad:
+        return gather_rows_kernel_grad(table2d, flat, n_levels, trailing, replicas)
+    return table2d.index_select(0, flat)
+
+
+def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
+                pallas_grad: bool = False) -> torch.Tensor:
+    """Trilinear multiresolution hash encoding ``(L, T, F)`` table,
+    ``(..., 3)`` points in [0, 1] -> ``(..., L * F)``.
+
+    Corners are clamped to ``res - 1`` so the +1 corner at xyz == 1 stays in
+    range (its weight is 0). The flat index layout is ``(N, L, 8)``, corners
+    minor, which the kernel's level split relies on (trailing = 8). The JAX
+    package chunks large batches under ``lax.map``; that changes nothing
+    numerically, and the port encodes a batch in one pass."""
+    L, T, F = table.shape
+    lead = xyz.shape[:-1]
+    x = xyz.reshape(-1, 3)
+    n = x.shape[0]
+    res_np = np.asarray(resolutions, np.int64)
+    resf = torch.as_tensor(res_np, dtype=x.dtype, device=x.device)
+    p = x[:, None, :] * (resf[None, :, None] - 1.0)  # (N, L, 3)
+    p0 = torch.floor(p)
+    frac = p - p0
+    corners = torch.as_tensor(CORNER_OFFSETS.astype(np.int64), device=x.device)
+    c = p0.to(torch.int64)[:, :, None, :] + corners[None, None]  # (N, L, 8, 3)
+    c = torch.minimum(c, torch.as_tensor(res_np - 1, device=x.device).view(1, L, 1, 1))
+    flat = _level_flat(hash_cells(c, res_np, T), L, T)
+    gathered = gather_rows(table.reshape(L * T, F), flat, L, 8, pallas_grad)
+    w = corner_weights(frac.reshape(-1, 3))  # (N * L, 8)
+    feats = (gathered.view(n * L, 8, F) * w[..., None]).sum(1)
+    return feats.reshape(*lead, L * F)
+
+
+def ngp_resolutions(n_levels: int = 16, base_res: int = 16, max_res: int = 2048):
+    """Geometric progression of grid resolutions (NGP eq. 2-3)."""
+    if n_levels == 1:
+        return np.array([base_res])
+    b = np.exp((np.log(max_res) - np.log(base_res)) / (n_levels - 1))
+    return np.round(base_res * b ** np.arange(n_levels)).astype(np.int64)
+
+
+def sh_encode_deg2(d: torch.Tensor) -> torch.Tensor:
+    """Degree-2 real spherical harmonics of unit directions -> (..., 9)."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return torch.stack(
+        [
+            torch.full_like(x, 0.28209479177387814),
+            0.4886025119029199 * y,
+            0.4886025119029199 * z,
+            0.4886025119029199 * x,
+            1.0925484305920792 * x * y,
+            1.0925484305920792 * y * z,
+            0.31539156525252005 * (3 * z * z - 1),
+            1.0925484305920792 * x * z,
+            0.5462742152960396 * (x * x - y * y),
+        ],
+        dim=-1,
+    )
+
+
+def density_activation(sigma_raw: torch.Tensor) -> torch.Tensor:
+    """exp activation like instant-ngp."""
+    return torch.exp(torch.clamp(sigma_raw, -15.0, 15.0))
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
+    (None keeps f32)."""
+    if dtype is None:
+        return layer(x)
+    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class NGPHeads(nn.Module):
+    """The sigma, color and instance MLPs shared by both field encodings;
+    parameter names follow the flax modules (``sigma_0`` ... ``inst_1``)."""
+
+    def _make_heads(self, in_dim, geo_feat_dim, hidden, num_instances, dtype):
+        self.dtype = dtype
+        self.sigma_0 = nn.Linear(in_dim, hidden)
+        self.sigma_1 = nn.Linear(hidden, 1 + geo_feat_dim)
+        self.color_0 = nn.Linear(geo_feat_dim + 9, hidden)
+        self.color_1 = nn.Linear(hidden, hidden)
+        self.color_2 = nn.Linear(hidden, 3)
+        self.inst_0 = nn.Linear(geo_feat_dim, hidden)
+        self.inst_1 = nn.Linear(hidden, num_instances)
+
+    def sigma_head(self, h):
+        """Encoded features -> (sigma_raw (...,), geo (..., geo_feat_dim))."""
+        h = torch.relu(dense(self.sigma_0, h, self.dtype))
+        h = dense(self.sigma_1, h, self.dtype)
+        return h[..., 0], h[..., 1:]
+
+    def query(self, xyz):
+        """(..., 3) -> (sigma_raw (...,), geo (..., geo_feat_dim))."""
+        return self.sigma_head(self.encode(xyz))
+
+    def color(self, geo, viewdir):
+        sh = sh_encode_deg2(viewdir)
+        h = torch.cat([geo, sh.to(geo.dtype)], dim=-1)
+        h = torch.relu(dense(self.color_0, h, self.dtype))
+        h = torch.relu(dense(self.color_1, h, self.dtype))
+        return torch.sigmoid(dense(self.color_2, h, self.dtype))
+
+    def instance(self, geo):
+        """Instance logits from detached geometry features: the instance
+        field trains without disturbing the radiance field."""
+        h = torch.relu(dense(self.inst_0, geo.detach(), self.dtype))
+        return dense(self.inst_1, h, self.dtype)
+
+    def forward(self, xyz, viewdir, with_instance: bool = True, stage=no_stage):
+        """-> (sigma_raw, rgb, instance logits or None); ``stage(name)``
+        opens the ``encode`` and ``mlp`` spans."""
+        with stage("encode"):
+            h = self.encode(xyz)
+        with stage("mlp"):
+            sigma_raw, geo = self.sigma_head(h)
+            rgb = self.color(geo, viewdir)
+            logits = self.instance(geo) if with_instance else None
+        return sigma_raw, rgb, logits
+
+
+class InstanceNGP(NGPHeads):
+    """Hash-grid NeRF + instance-logit head. ``num_instances`` includes
+    background/void at 0. ``dtype`` is the MLPs' compute dtype (None = f32;
+    parameters stay f32)."""
+
+    def __init__(self, n_levels: int = 16, table_size: int = 2 ** 19, n_features: int = 2,
+                 base_res: int = 16, max_res: int = 2048, geo_feat_dim: int = 15,
+                 hidden: int = 64, num_instances: int = 33, dtype=None,
+                 pallas_grad: bool = False):
+        super().__init__()
+        self.pallas_grad = pallas_grad
+        self.resolutions = ngp_resolutions(n_levels, base_res, max_res)
+        self.hash_table = nn.Parameter(
+            torch.zeros((n_levels, table_size, n_features), dtype=torch.float32))
+        self._make_heads(n_levels * n_features, geo_feat_dim, hidden, num_instances, dtype)
+
+    def encode(self, xyz):
+        return hash_encode(self.hash_table, xyz, self.resolutions,
+                           pallas_grad=self.pallas_grad)

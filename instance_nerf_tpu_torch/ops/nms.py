@@ -53,7 +53,7 @@ def nms_mask(
     if obb and n > DENSE_NMS_MAX:
         raise NotImplementedError(
             f"OBB NMS over K={n} > {DENSE_NMS_MAX} candidates takes the streamed "
-            "sweep, which comes with the FCOS slice (slice 3)")
+            "sweep, which comes with the FCOS slice (slice 4)")
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=boxes.device)
     eff_scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))

@@ -1,6 +1,6 @@
 """NeRF-RCNN inference (PyTorch counterpart of
 ``instance_nerf_tpu.train.rcnn_trainer``; the training methods come with
-slice 4).
+slice 5).
 
 ``RCNNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
@@ -92,7 +92,7 @@ class RCNNTrainer:
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
         if cfg.bbox_type != "aabb":
-            raise NotImplementedError("OBB RCNN comes with slice 3 (eval and FCOS)")
+            raise NotImplementedError("OBB RCNN comes with slice 4 (eval and FCOS)")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card

@@ -1,6 +1,6 @@
 """Anchor NeRF-RPN proposal inference (PyTorch counterpart of
 ``instance_nerf_tpu.train.rpn_trainer``; the training methods come with
-slice 4, the ``eval`` export with slice 3).
+slice 5, the ``eval`` export with slice 4).
 
 ``RPNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.

@@ -1,7 +1,8 @@
 """Stage spans and timing on the card, shared by the port's trainers.
 
 ``Stages`` opens a ``torch.profiler`` range ``<prefix>.<name>`` around each
-stage of an inference path and, while a profile collects, CUDA events too.
+stage of an inference path or a training step and, while a profile
+collects, CUDA events too.
 ``benchmark_ms`` and ``profile_ms`` time a zero-argument callable that
 runs the path once.
 """
@@ -70,11 +71,14 @@ def benchmark_ms(run, device, reps=10, warmup=2) -> dict:
     }
 
 
-def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12) -> dict:
-    """Where ``run()``'s time goes, in ms per run: each stage's span on the
+def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12,
+               watch=("nms_sweep",)) -> dict:
+    """Where ``run()``'s time goes, in ms per run: each stage's spans on the
     device (CUDA events, no profiler attached), then ``torch.profiler`` over
     ``reps`` more runs for the device time of the top kernels, the launch
-    count and the device's busy share of the unprofiled wall time."""
+    count and the device's busy share of the unprofiled wall time.
+    ``<name>_ms`` sums the device time of the kernels whose names contain
+    each ``watch`` entry."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -85,7 +89,9 @@ def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12) -> dict:
     stages.events = {}
     try:
         walls = [_timed_ms(run) for _ in range(reps)]
-        spans = {k: float(np.median([s.elapsed_time(e) for s, e in v]))
+        # a stage may open several spans per run: sum them within each run
+        spans = {k: float(np.median(np.reshape([s.elapsed_time(e) for s, e in v],
+                                                (reps, -1)).sum(1)))
                  for k, v in stages.events.items()}
     finally:
         stages.events = None
@@ -111,7 +117,7 @@ def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12) -> dict:
         "device_kernel_ms_per_run": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches_per_run": sum(k[2] for k in kernels),
-        "nms_sweep_ms": sum(ms for ms, n, _ in kernels if "nms_sweep" in n),
+        **{f"{w}_ms": sum(ms for ms, n, _ in kernels if w in n) for w in watch},
         "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
                         for ms, n, c in kernels[:top]],
         "device": torch.cuda.get_device_name(device),

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import instance_nerf_tpu_torch
-from instance_nerf_tpu_torch.kernels import nms_cuda
+from instance_nerf_tpu_torch.kernels import coarse_occ_cuda, nms_cuda, scatter_cuda
 
 torch.set_num_threads(2)
 
@@ -43,7 +43,11 @@ def test_port_has_every_slice_module():
               "train.rcnn_trainer", "cli.run_rcnn",
               # slice 2: rotated anchor NeRF-RPN inference
               "ops.rotated_iou", "models.rpn", "train.rpn_trainer", "train.timing",
-              "cli.run_rpn"):
+              "cli.run_rpn",
+              # slice 3: instance-field training
+              "models.hashgrid", "models.fast_encode", "models.render",
+              "data.nerf_dataset", "kernels.scatter_cuda", "kernels.coarse_occ_cuda",
+              "train.ngp_trainer"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -86,6 +90,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         pytest.skip("a CUDA device is present: the default device is valid")
     from instance_nerf_tpu_torch.cli import run_rcnn, run_rpn
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
+    from instance_nerf_tpu_torch.train.ngp_trainer import InstanceFieldTrainer, NGPConfig
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -94,6 +99,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         RPNTrainer()
     with pytest.raises(RuntimeError, match="CUDA"):
         RPNTrainer(RPNConfig(rotated_bbox=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InstanceFieldTrainer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InstanceFieldTrainer(NGPConfig(n_levels=2, table_size=2 ** 8), seed=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         instance_nerf_tpu_torch.default_device()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -123,12 +132,33 @@ def test_nms_sweep_on_cpu_runs_plain_without_counting():
     assert nms_cuda.nms_sweep.launches == before
 
 
+def test_scatter_add_on_cpu_runs_plain_without_counting():
+    before = scatter_cuda.scatter_add.launches
+    idx = torch.tensor([0, 2, 2, -1, 9], dtype=torch.int32)
+    upd = torch.arange(10, dtype=torch.float32).reshape(5, 2)
+    out = scatter_cuda.scatter_add(idx, upd, 4)
+    assert out.tolist() == [[6.0, 8.0], [0.0, 0.0], [6.0, 8.0], [8.0, 9.0]]
+    table = torch.zeros((8, 2), requires_grad=True)
+    scatter_cuda.gather_rows_kernel_grad(table, idx[:4].clamp(0, 7), 2, 1).sum().backward()
+    assert float(table.grad.sum()) == 8.0
+    assert scatter_cuda.scatter_add.launches == before
+
+
+def test_coarse_occ_lookup_on_cpu_runs_plain_without_counting():
+    before = coarse_occ_cuda.coarse_occ_lookup.launches
+    grid = torch.zeros((4, 4, 4))
+    grid[1, 2, 3] = 1.0
+    cells = torch.tensor([[1, 2, 3], [0, 0, 0], [4, 2, 3]], dtype=torch.int32)
+    assert coarse_occ_cuda.coarse_occ_lookup(cells, grid).tolist() == [1.0, 0.0, 0.0]
+    assert coarse_occ_cuda.coarse_occ_lookup.launches == before
+
+
 def test_rpn_cli_modes_of_later_slices_raise():
     from instance_nerf_tpu_torch.cli import run_rpn
 
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         run_rpn.main(["--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         run_rpn.main(["--mode", "eval", "--device", "cpu"])
 
 
