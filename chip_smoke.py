@@ -43,19 +43,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    field (brick encoding, 3 levels x 4 features, T = 2^15, coarse occupancy
    32^3, bf16 MLPs), with the bf16 run against an f32 run on the card.
 11. ``kernel_scatter``: kernel B3 against its plain version on random,
-   collision-heavy, odd-N, clamping, replica and multi-level inputs, at
-   the two shapes of the JAX package's scatter probes (B6) and on the index
-   streams of the two slices' own steps (all levels, and levels 0 and 15
-   of the main config); times the kernel, the plain version and
-   ``index_add_``.
+   collision-heavy, odd-N, clamping, replica and multi-level inputs; on
+   adversarial ones: indices past T on every level, all updates on one
+   row, W in {2, 3, 4, 16, 32}, the hash and brick layouts with stray
+   indices, replicas; at the two shapes of the JAX package's scatter
+   probes (B6) and on the index streams of the two slices' own steps (all
+   levels, and levels 0 and 15 of the main config). Times the kernel, the
+   plain version and ``index_add_``: ``ms`` by CUDA events,
+   ``device_ms`` the kernel's own device time from ``torch.profiler``, and
+   ``call_device_ms`` / ``library_device_ms`` all the device work of the
+   wrapper's and the library's call, each table's zeroing included.
 12. ``kernel_coarse_occ``: kernel B5 on the fast config's own sample points,
    equal to its plain version and to the renderer's
-   ``coarse_occupancy_mxu``; times.
+   ``coarse_occupancy_mxu``, and exact at N = 1, N = 1001, on ``cells``
+   sliced off its 16-byte boundary and on cells outside the grid; times
+   (``ms``, ``device_ms``, ``call_device_ms``) beside advanced indexing.
 13. ``small_reference_field``: a small f32 field, card against the port's
    CPU run from the same weights, rays and draws: losses, gradients and
    params over rgb -> instance -> rgb.
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
-   launches on its path, error, times and bound.
+   launches on its path, error, times (``ms``, ``device_ms``) and bound.
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -109,6 +116,55 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, marker: str, match: str | None = None) -> dict:
+    """Device time per call of ``fn`` from ``torch.profiler`` (CUDA
+    activity): the summed durations of the device activities (kernels,
+    memsets) whose name contains ``match``, or of all of them, over the
+    calls the trace holds (``ms``; None where it holds none).
+
+    A trace around a run of calls misses the first call's activities, and
+    they turn up in the next trace of the process. So only activities that
+    start inside this trace's window of calls count (the window's own
+    annotation on the device timeline not among them), and the time is
+    divided by the calls seen, each counted by its one launch of the kernel
+    named ``marker``, not by the calls made. A trace that holds fewer than
+    half of them is taken again, up to three times. ``per_call`` is the
+    activities per call counted (what the time sums), ``calls_seen`` the
+    calls counted of ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("device_ms_calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events if e.name == "device_ms_calls"),
+                 default=float("-inf"))
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and e.time_range.start >= t0 and e.name != "device_ms_calls"]
+        calls = sum(marker in e.name for e in device)
+        if 2 * calls >= reps:
+            break
+    us = [e.time_range.elapsed_us() for e in device if match is None or match in e.name]
+    return {"ms": sum(us) / calls / 1e3 if calls and us else None,
+            "per_call": len(us) / calls if calls else None, "calls_seen": calls}
+
+
+def profiled(out, key, fn, reps, marker, match=None):
+    """``device_ms`` of ``fn`` into ``out[key]``, with its activities per
+    call and calls counted under ``out[key + "_activities"]`` and
+    ``out[key + "_calls_seen"]``."""
+    d = device_ms(fn, reps, marker, match)
+    out[key] = d["ms"]
+    out[key + "_activities"], out[key + "_calls_seen"] = d["per_call"], d["calls_seen"]
 
 
 def random_sorted_boxes(rng, shape, size, p_valid=0.9):
@@ -596,11 +652,15 @@ def scatter_bound_ms(n, w, rows):
 
 
 def check_scatter(name, idx, upd, rows, n_levels=1, trailing=1, replicas=1, tol=1e-5,
-                  mag_rtol=None, timed=False, library=True):
+                  mag_rtol=None, timed=False):
     """Kernel B3 against its plain version on the card (and, timed, the
-    kernel, the plain version and ``index_add_`` into a zeroed table).
-    Held to ``tol`` absolute, or with ``mag_rtol`` to that share of each
-    entry's sum of |updates| (f32 summation error grows with it)."""
+    kernel, the plain version and ``index_add_`` into a zeroed table: ``ms``
+    by CUDA events around back-to-back calls; from the profiler,
+    ``device_ms`` the kernel alone, ``call_device_ms`` all the device work
+    of the wrapper's call and ``library_device_ms`` all of the library
+    call's, each with its table's zeroing). Held to ``tol`` absolute, or
+    with ``mag_rtol`` to that share of each entry's sum of |updates| (f32
+    summation error grows with it)."""
     import torch
 
     from instance_nerf_tpu_torch.kernels import scatter_cuda
@@ -611,13 +671,15 @@ def check_scatter(name, idx, upd, rows, n_levels=1, trailing=1, replicas=1, tol=
     def plain():
         return scatter_cuda.level_scatter_add_plain(idx, upd, n_levels, trailing, rows)
 
+    plan = scatter_cuda.scatter_plan(idx.shape[0], upd.shape[1], n_levels, trailing,
+                                     torch.cuda.get_device_properties(0).multi_processor_count)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max()) if got.numel() else 0.0
     out = {"case": name, "n": int(idx.shape[0]), "w": int(upd.shape[1]),
            "rows": n_levels * rows, "levels": n_levels, "trailing": trailing,
-           "replicas": replicas, "max_abs_err": err}
+           "replicas": replicas, "plan": plan._asdict(), "max_abs_err": err}
     if mag_rtol is None:
         out["tolerance"] = tol
         bad = err > tol
@@ -631,10 +693,16 @@ def check_scatter(name, idx, upd, rows, n_levels=1, trailing=1, replicas=1, tol=
         raise AssertionError(f"scatter_add kernel disagrees with its plain version: {out}")
     if timed:
         idx_l = idx.long()
-        out["ms"] = cuda_ms(kernel, reps=20)
+
+        def library():
+            return torch.zeros_like(want).index_add_(0, idx_l, upd)
+
+        out["ms"] = cuda_ms(kernel, reps=100)
         out["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
-        out["library_ms"] = (cuda_ms(lambda: torch.zeros_like(want).index_add_(0, idx_l, upd),
-                                     reps=20) if library else None)
+        out["library_ms"] = cuda_ms(library, reps=100)
+        profiled(out, "device_ms", kernel, 20, "scatter_add_kernel", "scatter_add_kernel")
+        profiled(out, "call_device_ms", kernel, 20, "scatter_add_kernel")
+        profiled(out, "library_device_ms", library, 20, "indexFunc")
         out["bound_ms"], out["bound_by"] = scatter_bound_ms(idx.shape[0], upd.shape[1],
                                                             n_levels * rows)
     return out
@@ -642,7 +710,7 @@ def check_scatter(name, idx, upd, rows, n_levels=1, trailing=1, replicas=1, tol=
 
 def level_stream(idx, upd, n_levels, trailing, rows, level):
     """The updates of one level of a multi-level gradient, rebased to
-    ``[0, rows)``."""
+    ``[0, rows)``, in their layout (points, trailing)."""
     import torch
 
     pos = torch.arange(idx.shape[0], device=idx.device)
@@ -805,6 +873,56 @@ def phase_slice_field_fast():
     return report["launches_rgb"], step, b5_inputs
 
 
+def adversarial_scatter_cases(rng, hash_idx, hash_upd):
+    """B3 against the plain version where it could go wrong: indices far
+    below and past T on every level of the hash layout (N also cut to no
+    multiple of the layout), all updates on one row, every row width the
+    kernel treats apart, the brick layout with stray indices, and
+    replicas."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def normal(n, w):
+        return torch.as_tensor(rng.normal(size=(n, w)).astype(np.float32), device=dev)
+
+    cases = []
+    # hash layout (trailing 8), T = 4096: most indices in a level's first
+    # 64 rows (runs of equal rows), 10% anywhere in [-40, T + 40), and 400
+    # points a level on row 0, T - 1, T or far past T
+    t, pts = 4096, 8192
+    local = rng.integers(0, 64, (pts, 3, 8))
+    stray = rng.uniform(size=local.shape) < 0.1
+    local[stray] = rng.integers(-40, t + 40, int(stray.sum()))
+    for l in range(3):
+        edge = rng.integers(0, pts, 400)
+        local[edge, l, :] = rng.choice([-t, 0, t - 1, t, t + 5000], (400, 1))
+    idx = (torch.as_tensor(local, device=dev) + torch.arange(3, device=dev).view(1, 3, 1) * t
+           ).reshape(-1).to(torch.int32)
+    upd = normal(idx.shape[0], 2)
+    cases.append(check_scatter("stray_hash_layout", idx, upd, t, 3, 8, mag_rtol=1e-5))
+    cases.append(check_scatter("stray_hash_layout_odd_n", idx[:-5], upd[:-5], t, 3, 8,
+                               mag_rtol=1e-5))
+    # every update on one row
+    one = torch.full((2 ** 18,), 7, dtype=torch.int32, device=dev)
+    cases.append(check_scatter("one_row", one, normal(2 ** 18, 2), 1024, mag_rtol=1e-5))
+    # the row widths: float2 (2), scalar (3), float4 (4), float4 with
+    # several threads a row (16: 4, 32: 8)
+    for w in (2, 3, 4, 16, 32):
+        idx = torch.as_tensor(rng.integers(-8, 520, 65536).astype(np.int32), device=dev)
+        cases.append(check_scatter(f"w{w}", idx, normal(65536, w), 512, mag_rtol=1e-5))
+    cases.append(check_scatter("levels_hash_layout_w4", hash_idx,
+                               normal(hash_idx.shape[0], 4), 256, 3, 8, mag_rtol=1e-5))
+    brick_idx = (torch.as_tensor(rng.integers(-10, 266, (20000, 3)), device=dev)
+                 + torch.arange(3, device=dev).view(1, 3) * 256).reshape(-1).to(torch.int32)
+    cases.append(check_scatter("levels_brick_layout", brick_idx,
+                               normal(brick_idx.shape[0], 32), 256, 3, 1, mag_rtol=1e-5))
+    idx = torch.as_tensor(rng.integers(0, 16, 16384).astype(np.int32), device=dev)
+    cases.append(check_scatter("replicas_4_hot_rows", idx, normal(16384, 2), 1024,
+                               replicas=4, mag_rtol=1e-5))
+    return cases
+
+
 def phase_kernel_scatter(main_step, fast_step):
     """B3 against its plain version on synthetic cases, the B6 probe shapes
     and the slices' own index streams; returns the timed cases."""
@@ -833,7 +951,12 @@ def phase_kernel_scatter(main_step, fast_step):
     hash_upd = torch.as_tensor(rng.normal(size=(4096 * 24, 2)).astype(np.float32), device=dev)
     cases.append(check_scatter("levels_hash_layout", hash_idx.reshape(-1).to(torch.int32),
                                hash_upd, 256, n_levels=3, trailing=8, mag_rtol=1e-5))
+    cases += adversarial_scatter_cases(rng, hash_idx.reshape(-1).to(torch.int32), hash_upd)
     timed = {
+        # the kernel's worst case: 2^20 random updates of 2 floats into 64
+        # rows, 16,384 per row in no order (no runs to sum in registers)
+        "collision_t64": check_scatter("collision_t64", *rand(2 ** 20, 64, 2), 64,
+                                       mag_rtol=1e-5, timed=True),
         # the two shapes of examples/probe9_scatter_variants.py (B6)
         "probe9_n131072_w16": check_scatter("probe9_n131072_w16", *rand(131072, 2 ** 15, 16),
                                             2 ** 15, timed=True),
@@ -846,7 +969,8 @@ def phase_kernel_scatter(main_step, fast_step):
     for lvl in (0, n_levels - 1):
         li, lu = level_stream(idx, upd, n_levels, trailing, rows, lvl)
         name = f"main_level_{lvl}"
-        timed[name] = check_scatter(name, li, lu, rows, mag_rtol=1e-5, timed=True)
+        timed[name] = check_scatter(name, li, lu, rows, 1, trailing, mag_rtol=1e-5,
+                                    timed=True)
         timed[name]["distinct_rows"] = int(torch.unique(li).numel())
     idx, upd, n_levels, trailing, rows = fast_step
     timed["fast_all_levels"] = check_scatter("fast_all_levels", idx, upd, rows, n_levels,
@@ -882,26 +1006,49 @@ def phase_kernel_coarse_occ(b5_inputs):
         got = coarse_occ_lookup(cells, grid)
         want = coarse_occ_lookup_plain(cells, grid)
         mxu = coarse_occupancy_mxu(occ, xyz_c, cr).reshape(-1)
-        odd = coarse_occ_lookup(cells[:1001], grid)  # no block-multiple contract
+        # no block-multiple contract: N = 1, N = 1001, and cells sliced off
+        # their 16-byte boundary (each of the three offsets)
+        parts = {"n1": (cells[:1], want[:1]), "n1001": (cells[:1001], want[:1001])}
+        parts.update({f"slice_{k}": (cells[k:], want[k:]) for k in (1, 2, 3)})
+        r_grid = grid.shape[0]
+        wild = cells[:4099].clone()  # cells outside the grid on every side
+        wild[::7, 0] = -1
+        wild[3::11, 2] = r_grid
+        wild[5::13, 1] = r_grid + 7
+        parts["outside"] = (wild, coarse_occ_lookup_plain(wild, grid))
+        mismatches = int((got != want).sum()) + int((got != mxu).sum())
+        part_mismatches = {}
+        for k, (c, w) in parts.items():
+            part_mismatches[k] = int((coarse_occ_lookup(c, grid) != w).sum())
+        mismatches += sum(part_mismatches.values())
         torch.cuda.synchronize()
-        mismatches = (int((got != want).sum()) + int((got != mxu).sum())
-                      + int((odd != want[:1001]).sum()))
         cases[name] = {"grid_occupied_share": float(grid.float().mean()),
-                       "samples_occupied_share": float(got.mean()), "mismatches": mismatches}
+                       "samples_occupied_share": float(got.mean()), "mismatches": mismatches,
+                       "mismatches_by_part": part_mismatches}
         if mismatches:
             raise AssertionError(f"coarse_occ kernel disagrees on {name}: {cases[name]}")
     grid = coarse_grid(occs["field_density"], cr)
     n, r = int(cells.shape[0]), int(grid.shape[0])
     cl = cells.long()
     byte_s = (n * 12 + r ** 3 + n * 4) / PEAK_BYTES_PER_S
+
+    def kernel():
+        return coarse_occ_lookup(cells, grid)
+
+    def library():
+        return grid[cl[:, 0], cl[:, 1], cl[:, 2]]
+
     timing = {
-        "ms": cuda_ms(lambda: coarse_occ_lookup(cells, grid), reps=100),
+        "ms": cuda_ms(kernel, reps=100),
         "plain_ms": cuda_ms(lambda: coarse_occ_lookup_plain(cells, grid), reps=20),
-        "library_ms": cuda_ms(lambda: grid[cl[:, 0], cl[:, 1], cl[:, 2]], reps=100),
+        "library_ms": cuda_ms(library, reps=100),
         "renderer_ms": cuda_ms(lambda: coarse_occupancy_mxu(occs["field_density"], xyz_c, cr),
                                reps=20),
         "bound_ms": byte_s * 1e3, "bound_by": "bytes",
     }
+    profiled(timing, "device_ms", kernel, 50, "coarse_occ_kernel", "coarse_occ_kernel")
+    profiled(timing, "call_device_ms", kernel, 50, "coarse_occ_kernel")
+    profiled(timing, "library_device_ms", library, 50, "index_elementwise")
     emit({"phase": "kernel_coarse_occ", "n": n, "coarse_res": r, "grids": cases, **timing})
     return {"n": n, "coarse_res": r, **timing}
 
@@ -985,6 +1132,8 @@ def main():
     if err:
         raise AssertionError("kernel disagrees on the scene's own NMS input")
     k_ms = cuda_ms(lambda: nms_boxes(sboxes, svalid, 0.15), reps=200)
+    k_dev = device_ms(lambda: nms_boxes(sboxes, svalid, 0.15), 50, "nms_sweep_kernel",
+                      "nms_sweep_kernel")["ms"]
     bound_ms, bound_by = nms_bound_ms(keep_k)
     p_ms = cuda_ms(lambda: nms_boxes_plain(sboxes, svalid, 0.15), reps=5, warmup=1)
     phase_small_reference()
@@ -996,6 +1145,8 @@ def main():
     if err_iou:
         raise AssertionError("nms_sweep kernel disagrees on the scene's own NMS input")
     ki_ms = cuda_ms(lambda: nms_sweep(iou, ivalid, 0.7), reps=20)
+    ki_dev = device_ms(lambda: nms_sweep(iou, ivalid, 0.7), 10, "nms_sweep_iou_kernel",
+                       "nms_sweep_iou_kernel")["ms"]
     bound_iou_ms, bound_iou_by = sweep_bound_ms(keep_k)
     pi_ms = cuda_ms(lambda: nms_sweep_plain(iou, ivalid, 0.7), reps=3, warmup=1)
     kept = int(keep_k.sum())
@@ -1015,7 +1166,7 @@ def main():
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:113",
         "launches": launches_rcnn["nms_boxes"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
@@ -1024,7 +1175,7 @@ def main():
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep_iou.cu",
         "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:157",
         "launches": launches_rpn["nms_sweep"], "max_abs_err": err_iou,
-        "ms": ki_ms, "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
+        "ms": ki_ms, "device_ms": ki_dev, "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
         "random_k4000": timing_iou["k4000"],
@@ -1037,18 +1188,23 @@ def main():
         "launches": launches_field["scatter_add"],
         "launches_fast": launches_fast["scatter_add"],
         "max_abs_err": main_scat["max_abs_err"],
-        "ms": main_scat["ms"], "plain_ms": main_scat["plain_ms"],
+        "ms": main_scat["ms"], "device_ms": main_scat["device_ms"],
+        "call_device_ms": main_scat["call_device_ms"], "plain_ms": main_scat["plain_ms"],
         "bound_ms": main_scat["bound_ms"], "bound_by": main_scat["bound_by"],
-        "library_ms": main_scat["library_ms"], "n": main_scat["n"], "w": main_scat["w"],
+        "library_ms": main_scat["library_ms"],
+        "library_device_ms": main_scat["library_device_ms"],
+        "n": main_scat["n"], "w": main_scat["w"],
         "rows": main_scat["rows"], "cases": scat,
     }, {
         "name": "coarse_occ_lookup", "route": "cuda",
         "source": "instance_nerf_tpu_torch/csrc/coarse_occ.cu",
         "replaces": "instance_nerf_tpu/kernels/coarse_occ_pallas.py:53",
         "launches": launches_fast["coarse_occ_lookup"], "on_main_path": False,
-        "max_abs_err": 0.0, "ms": occ_t["ms"], "plain_ms": occ_t["plain_ms"],
+        "max_abs_err": 0.0, "ms": occ_t["ms"], "device_ms": occ_t["device_ms"],
+        "call_device_ms": occ_t["call_device_ms"], "plain_ms": occ_t["plain_ms"],
         "bound_ms": occ_t["bound_ms"], "bound_by": occ_t["bound_by"],
-        "library_ms": occ_t["library_ms"], "renderer_ms": occ_t["renderer_ms"],
+        "library_ms": occ_t["library_ms"], "library_device_ms": occ_t["library_device_ms"],
+        "renderer_ms": occ_t["renderer_ms"],
         "n": occ_t["n"], "coarse_res": occ_t["coarse_res"],
     }]})
     print(smi, flush=True)

@@ -100,3 +100,30 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name]
     return lib
+
+
+def typed(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """``csrc/<name>.cu``'s C function ``fn`` with its argument types set
+    and an int result (the launch's CUDA error)."""
+    f = getattr(load(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def call_on_stream(f, index: int, *args) -> int:
+    """``f(*args, stream)`` with CUDA device ``index`` current and its
+    current stream's handle as the last argument. The device is switched
+    only when it is not current already, and the raw handle is taken without
+    building a ``torch.cuda.Stream`` (PyTorch's private calls where this
+    build has them: a kernel that runs for microseconds pays this on every
+    launch)."""
+    import torch
+
+    get_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if index == get_device():
+        stream = raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+        return f(*args, stream)
+    with torch.cuda.device(index):
+        return f(*args, torch.cuda.current_stream(index).cuda_stream)

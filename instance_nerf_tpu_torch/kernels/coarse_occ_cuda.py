@@ -4,8 +4,11 @@
 of the JAX package: the occupancy of each sample's cell in a coarse
 ``(R, R, R)`` grid, which ``models/render.py:coarse_occupancy_mxu`` computes
 for the renderer. Like the JAX kernel it has no caller in the package; the
-renderer keeps its own lookup. The kernel is ``csrc/coarse_occ.cu`` (one
-thread per point, any N).
+renderer keeps its own lookup. The kernel is ``csrc/coarse_occ.cu`` (four
+points per thread with 16-byte accesses, any N and any base offset). The
+kernel takes a few microseconds, so the launch path does no more than it
+must: no copy of a contiguous input, a bool grid passed through as bytes,
+the typed C function cached, the stream handle taken raw.
 
 A wrapper takes a CUDA tensor to the kernel and a CPU tensor to the plain
 version; a CUDA tensor never falls back. ``coarse_occ_lookup.launches``
@@ -14,8 +17,11 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+
+from instance_nerf_tpu_torch.kernels import build
 
 
 def _check(cells: torch.Tensor, grid: torch.Tensor) -> None:
@@ -42,22 +48,24 @@ def coarse_occ_lookup(cells: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     grid -> ``(N,)`` f32 occupancy. A CUDA tensor launches kernel B5 (and
     counts one launch); a CPU tensor runs ``coarse_occ_lookup_plain``."""
     _check(cells, grid)
-    if cells.device.type == "cpu":
+    dev = cells.device
+    if dev.type == "cpu":
         return coarse_occ_lookup_plain(cells, grid)
-    if cells.device.type != "cuda":
-        raise ValueError(f"unsupported device {cells.device}")
-    n, r = cells.shape[0], grid.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=cells.device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = cells.shape[0]
+    out = cells.new_empty((n,), dtype=torch.float32)
     if n == 0:
         return out
-    cells_c = cells.contiguous()
+    if not cells.is_contiguous():
+        cells = cells.contiguous()
     # a bool grid is already one 0/1 byte per cell; anything else is converted
-    grid_u8 = (grid if grid.dtype == torch.bool else grid != 0).contiguous().view(torch.uint8)
-    lib = _lib()
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream(cells.device).cuda_stream
-        err = lib.coarse_occ_launch(cells_c.data_ptr(), grid_u8.data_ptr(), r, n,
-                                    out.data_ptr(), stream)
+    if grid.dtype != torch.bool:
+        grid = grid != 0
+    if not grid.is_contiguous():
+        grid = grid.contiguous()
+    err = build.call_on_stream(_launch_fn(), dev.index, cells.data_ptr(), grid.data_ptr(),
+                               grid.shape[0], n, out.data_ptr())
     if err != 0:
         raise RuntimeError(f"coarse_occ launch failed: CUDA error {err}")
     coarse_occ_lookup.launches += 1
@@ -67,14 +75,8 @@ def coarse_occ_lookup(cells: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 coarse_occ_lookup.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    """The library of ``csrc/coarse_occ.cu`` with its launch function typed."""
-    from instance_nerf_tpu_torch.kernels import build
-
-    lib = build.load("coarse_occ")
-    fn = lib.coarse_occ_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    """``csrc/coarse_occ.cu``'s launch function, typed (built on first use)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.typed("coarse_occ", "coarse_occ_launch", [p, p, i, i, p, p])

@@ -11,8 +11,9 @@ plain PyTorch versions (the JAX package keeps both in
   makes one call per level (indices rebased and clamped per level inside the
   kernel).
 
-Both run ``csrc/scatter_add.cu``: one thread per (update, column) with an
-f32 atomic add into the table (see the source for the design). Summation
+Both run ``csrc/scatter_add.cu``: vector atomics of whole rows, runs of
+equal rows summed in registers first, level by level through L2, split
+over the card by ``scatter_plan`` on the host (see the source). Summation
 order is free, so the kernel equals its plain version to float rounding.
 
 A wrapper takes a CUDA tensor to the kernel and a CPU tensor to the plain
@@ -22,8 +23,47 @@ of the kernel, from either entry, adds one to ``scatter_add.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
+
+from instance_nerf_tpu_torch.kernels import build
+
+# the kernel's constants (csrc/scatter_add.cu: kRun, kMaxLanes, kThreads)
+RUN = 8
+MAX_LANES = 8
+THREADS = 256
+# at most this many runs of RUN points per thread; at least half the blocks
+# an SM holds at once (2048 threads) per level, so that the blocks in
+# flight work on a level or two and its table rows stay in L2
+MAX_PASSES = 16
+THREADS_PER_SM = 2048
+
+
+class ScatterPlan(NamedTuple):
+    """How one launch of B3 splits its work: ``lanes`` threads per update
+    (each a share of its row's 16-byte vectors) and the runs of ``RUN``
+    points each thread takes (``passes``)."""
+    lanes: int
+    passes: int
+
+
+def scatter_plan(n: int, w: int, n_levels: int, trailing: int, n_sm: int = 132) -> ScatterPlan:
+    """The split of ``n`` updates of ``w`` floats, laid out ``(points,
+    n_levels, trailing)``, over ``n_sm`` SMs. The kernel gives a row of c
+    vectors up to ``MAX_LANES`` threads (c's largest power-of-two factor);
+    the plan assumes 16-byte vectors where W allows, as the kernel does
+    for 16-byte aligned tensors."""
+    points = -(-n // (n_levels * trailing))
+    vec = 4 if w % 4 == 0 else 2 if w % 2 == 0 else 1
+    lanes = 1
+    while lanes < MAX_LANES and (w // vec) % (2 * lanes) == 0 and 2 * lanes * trailing <= THREADS:
+        lanes *= 2
+    per_pass = THREADS // (lanes * trailing) * RUN  # points a block's threads take per pass
+    blocks_per_level = n_sm * (THREADS_PER_SM // THREADS) // 2
+    passes = max(1, min(MAX_PASSES, points // (per_pass * blocks_per_level)))
+    return ScatterPlan(lanes, passes)
 
 
 def _check(indices: torch.Tensor, updates: torch.Tensor) -> None:
@@ -58,6 +98,33 @@ def scatter_add_plain(indices: torch.Tensor, updates: torch.Tensor, table_rows: 
     return level_scatter_add_plain(indices, updates, 1, 1, table_rows)
 
 
+class _LaunchArgs(ctypes.Structure):
+    """``csrc/scatter_add.cu``'s ``LaunchArgs``: the host call converts one
+    pointer instead of eleven arguments."""
+    _fields_ = [("idx", ctypes.c_void_p), ("upd", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("stream", ctypes.c_void_p), ("n", ctypes.c_longlong)] + [
+        (f, ctypes.c_int) for f in ("w", "n_levels", "trailing", "rows_per_level", "replicas",
+                                    "passes")]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_template(n, w, n_levels, trailing, rows_per_level, replicas, device) -> bytes:
+    """The bytes of a launch's arguments but for the pointers and the
+    stream, planned by ``scatter_plan`` for the card ``device``. Each launch
+    copies them into a struct of its own, so that launches from several
+    host threads never share one."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = scatter_plan(n, w, n_levels, trailing, n_sm)
+    return bytes(_LaunchArgs(n=n, w=w, n_levels=n_levels, trailing=trailing,
+                             rows_per_level=rows_per_level, replicas=replicas,
+                             passes=plan.passes))
+
+
+def _call(args, stream):
+    args.stream = stream
+    return _launch_fn()(args)
+
+
 def _launch(indices, updates, n_levels, trailing, rows_per_level, replicas):
     """Kernel B3 over ``(N,)`` indices and ``(N, W)`` updates into a zeroed
     ``(n_levels * rows_per_level, W)`` table (see ``csrc/scatter_add.cu``)."""
@@ -65,21 +132,28 @@ def _launch(indices, updates, n_levels, trailing, rows_per_level, replicas):
         raise ValueError(f"unsupported device {indices.device}")
     if replicas < 1:
         raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if trailing > THREADS:
+        raise ValueError(f"trailing = {trailing} exceeds {THREADS}")
     n, w = updates.shape
     if n * w >= 2 ** 31:
         raise ValueError(f"N * W = {n * w} exceeds the kernel's 2^31 element limit")
-    idx = indices.to(torch.int32).contiguous()
-    upd = updates.contiguous()
+    # the host work of a launch is kept to what it must do: at probe sizes
+    # it takes longer than the kernel
+    if indices.dtype != torch.int32:
+        indices = indices.to(torch.int32)
+    if not indices.is_contiguous():
+        indices = indices.contiguous()
+    if not updates.is_contiguous():
+        updates = updates.contiguous()
     rows = n_levels * rows_per_level
-    out = torch.zeros((replicas * rows, w), dtype=torch.float32, device=upd.device)
     if n == 0 or w == 0:
-        return out[:rows]
-    lib = _lib()
-    with torch.cuda.device(upd.device):
-        stream = torch.cuda.current_stream(upd.device).cuda_stream
-        err = lib.scatter_add_launch(idx.data_ptr(), upd.data_ptr(), n, w, n_levels,
-                                     trailing, rows_per_level, replicas,
-                                     out.data_ptr(), stream)
+        return updates.new_zeros((rows, w))
+    out = updates.new_empty((replicas * rows, w))  # zeroed by the launch
+    index = updates.get_device()
+    args = _LaunchArgs.from_buffer_copy(
+        _launch_template(n, w, n_levels, trailing, rows_per_level, replicas, index))
+    args.idx, args.upd, args.out = indices.data_ptr(), updates.data_ptr(), out.data_ptr()
+    err = build.call_on_stream(_call, index, args)
     if err != 0:
         raise RuntimeError(f"scatter_add launch failed: CUDA error {err}")
     scatter_add.launches += 1
@@ -132,8 +206,7 @@ class _GatherRowsKernelGrad(torch.autograd.Function):
             d_table = level_scatter_add_plain(flat_idx, d_rows, n_levels, trailing,
                                               rows_per_level)
         else:
-            d_table = _launch(flat_idx, d_rows, n_levels, trailing, rows_per_level,
-                              replicas)
+            d_table = _launch(flat_idx, d_rows, n_levels, trailing, rows_per_level, replicas)
         return d_table, None, None, None, None
 
 
@@ -156,15 +229,8 @@ def gather_rows_kernel_grad(table2d: torch.Tensor, flat_idx: torch.Tensor,
     return _GatherRowsKernelGrad.apply(table2d, flat_idx, n_levels, trailing, replicas)
 
 
-def _lib() -> ctypes.CDLL:
-    """The library of ``csrc/scatter_add.cu`` with its launch function typed."""
-    from instance_nerf_tpu_torch.kernels import build
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    """``csrc/scatter_add.cu``'s launch function, typed (built on first use)."""
+    return build.typed("scatter_add", "scatter_add_launch", [ctypes.POINTER(_LaunchArgs)])
 
-    lib = build.load("scatter_add")
-    fn = lib.scatter_add_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -30,7 +30,9 @@ from instance_nerf_tpu_torch.kernels.scatter_cuda import (
     level_scatter_add_plain,
     scatter_add,
     scatter_add_plain,
+    scatter_plan,
 )
+from instance_nerf_tpu_torch.kernels import scatter_cuda
 
 torch.set_num_threads(2)
 
@@ -83,12 +85,14 @@ def test_clamp_lands_in_first_and_last_row():
     np.testing.assert_array_equal(got[7], upd[[3, 4, 5]].sum(0))
 
 
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("trailing,w", [(8, 2), (1, 32)])
-def test_level_gradient_matches_pallas_grad(trailing, w):
+def test_level_gradient_matches_pallas_grad(trailing, w, idx_dtype):
     """B4's backward: the multi-level table gradient of one gather, with the
     hash layout (trailing = 8, W = 2) and the brick layout (trailing = 1,
     W = 32), against ``gather_rows_pallas_grad``'s VJP. Some indices fall
-    outside their level: each must stay inside its own level's slab."""
+    outside their level: each must stay inside its own level's slab. The
+    wrappers take int32 and int64 indices alike."""
     import jax
 
     rng = np.random.default_rng(3)
@@ -104,8 +108,8 @@ def test_level_gradient_matches_pallas_grad(trailing, w):
     _, vjp = jax.vjp(lambda tab: gather_rows_pallas_grad(tab, jnp.asarray(flat), n_levels,
                                                          trailing=trailing), jnp.asarray(table))
     want = np.asarray(vjp(jnp.asarray(d_rows))[0])
-    got = level_scatter_add_plain(torch.from_numpy(flat), torch.from_numpy(d_rows), n_levels,
-                                  trailing, t).numpy()
+    got = level_scatter_add_plain(torch.from_numpy(flat.astype(idx_dtype)),
+                                  torch.from_numpy(d_rows), n_levels, trailing, t).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
     # through the autograd Function (its CPU backward is the plain version)
@@ -113,7 +117,8 @@ def test_level_gradient_matches_pallas_grad(trailing, w):
     rows_j, vjp = jax.vjp(lambda tab: gather_rows_pallas_grad(
         tab, jnp.asarray(inside), n_levels, trailing=trailing), jnp.asarray(table))
     tab = torch.from_numpy(table).requires_grad_(True)
-    rows = gather_rows_kernel_grad(tab, torch.from_numpy(inside), n_levels, trailing)
+    rows = gather_rows_kernel_grad(tab, torch.from_numpy(inside.astype(idx_dtype)), n_levels,
+                                   trailing)
     np.testing.assert_array_equal(rows.detach().numpy(), np.asarray(rows_j))
     rows.backward(torch.from_numpy(d_rows))
     np.testing.assert_allclose(tab.grad.numpy(), np.asarray(vjp(jnp.asarray(d_rows))[0]),
@@ -140,3 +145,87 @@ def test_b5_plain_matches_pallas():
     # no block-multiple contract on the port's side
     odd = coarse_occ_lookup_plain(torch.from_numpy(cells[:1001]), torch.from_numpy(grid))
     np.testing.assert_array_equal(odd.numpy(), want[:1001])
+
+
+def _kernel_cover(n, w, n_levels, trailing, n_sm):
+    """How many times ``csrc/scatter_add.cu``'s blocks and threads, under
+    the plan, touch each (update, 16-byte chunk of its row): the kernel's
+    work split replayed on the host for 16-byte aligned tensors."""
+    plan = scatter_plan(n, w, n_levels, trailing, n_sm)
+    vec = 4 if w % 4 == 0 else 2 if w % 2 == 0 else 1
+    chunks, group = w // vec, n_levels * trailing
+    points = -(-n // group)
+    slots = scatter_cuda.THREADS // (plan.lanes * trailing)
+    per_block = plan.passes * scatter_cuda.RUN * slots
+    blocks_per_level = -(-points // per_block)
+    hits = np.zeros((n, chunks), np.int64)
+    for b in range(n_levels * blocks_per_level):
+        lvl = b // blocks_per_level
+        p_lo = (b - lvl * blocks_per_level) * per_block
+        p_hi = min(points, p_lo + per_block)
+        for t in range(scatter_cuda.THREADS):
+            c0, rest = t % plan.lanes, t // plan.lanes
+            corner, slot = rest % trailing, rest // trailing
+            if slot >= slots:
+                continue
+            first = min(p_hi, p_lo + slot * (per_block // slots))
+            u = np.arange(first, min(p_hi, first + per_block // slots)) * group
+            u = u + lvl * trailing + corner
+            u = u[u < n]
+            hits[u[:, None], np.arange(c0, chunks, plan.lanes)[None]] += 1
+    return plan, hits
+
+
+@pytest.mark.parametrize("case", ["hash_layout", "brick_layout_w32", "probe9_w16",
+                                  "scalar_w3", "odd_n", "wide_trailing", "several_passes"])
+def test_scatter_plan(case):
+    """B3's host plan and the kernel's division-free work split: every
+    update's every chunk is added by exactly one thread, with up to 8
+    threads sharing a row of 16-byte vectors (the brick field's 32 floats:
+    8, one float4 each), one thread a row of 2 floats or of an odd width,
+    and more runs per thread once the stream outgrows the card."""
+    n_sm = 132
+    if case == "hash_layout":  # the main field's layout, fewer points
+        args, lanes, passes = (4096 * 16 * 8, 2, 16, 8), 1, 1
+    elif case == "brick_layout_w32":
+        args, lanes, passes = (3000 * 3, 32, 3, 1), 8, 1
+    elif case == "probe9_w16":
+        args, lanes, passes = (20000, 16, 1, 1), 4, 1
+    elif case == "scalar_w3":
+        args, lanes, passes = (4099, 3, 1, 1), 1, 1
+    elif case == "odd_n":  # N no multiple of L * trailing
+        args, lanes, passes = (1001 * 24 - 5, 4, 3, 8), 1, 1
+    elif case == "wide_trailing":  # lanes capped by lanes * trailing <= 256
+        args, lanes, passes = (500 * 64, 32, 1, 64), 4, 1
+    else:
+        args, lanes, passes, n_sm = (150000, 2, 1, 1), 1, 9, 2
+    plan, hits = _kernel_cover(*args, n_sm)
+    assert (plan.lanes, plan.passes) == (lanes, passes)
+    assert (hits == 1).all()
+    # the main and fast fields' own steps on an H100's 132 SMs
+    assert scatter_plan(131072 * 16 * 8, 2, 16, 8) == (1, 1)
+    assert scatter_plan(131072 * 3, 32, 3, 1) == (8, 1)
+
+
+def test_launch_args_are_per_call(monkeypatch):
+    """The cached launch arguments are bytes; every launch copies them into
+    a struct of its own, so launches from two host threads never write the
+    same pointers."""
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    scatter_cuda._launch_template.cache_clear()
+    try:
+        tmpl = scatter_cuda._launch_template(131072 * 3, 32, 3, 1, 2 ** 15, 1, 0)
+        assert isinstance(tmpl, bytes)
+        a = scatter_cuda._LaunchArgs.from_buffer_copy(tmpl)
+        b = scatter_cuda._LaunchArgs.from_buffer_copy(tmpl)
+        a.idx, a.stream = 4096, 7
+        assert b.idx is None and b.stream is None
+        assert (b.n, b.w, b.n_levels, b.trailing, b.rows_per_level, b.replicas, b.passes) == (
+            131072 * 3, 32, 3, 1, 2 ** 15, 1, scatter_plan(131072 * 3, 32, 3, 1).passes)
+        assert scatter_cuda._launch_template(131072 * 3, 32, 3, 1, 2 ** 15, 1, 0) is tmpl
+    finally:
+        scatter_cuda._launch_template.cache_clear()
