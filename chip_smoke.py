@@ -9,10 +9,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. ``build``: builds every CUDA kernel of the port from ``csrc/`` (one
    ``nvcc`` per source, all started together).
 3. ``kernel_nms``: kernel B1 (``nms_boxes``) against its plain PyTorch
-   version on the card; keep masks must be bit-identical. Times both.
+   version on the card; keep masks must be bit-identical: K from 1 to the
+   wrappers' limit of 32768 (63, 64, 65, 127, 128, 129, 257 among them),
+   boxes whose IoU is exactly the threshold and one ulp above it, one box
+   repeated, batched problems with different valid masks; a K above the
+   limit must raise. Times both (``device_ms`` of both phases, each phase's
+   beside it) at K = 200 and 10400.
 4. ``kernel_nms_iou``: kernel B2 (``nms_sweep``) against its plain version
-   on rotated-IoU matrices of random overlapping OBBs; keep masks must be
-   bit-identical. Times both at K = 4000.
+   on rotated-IoU matrices of random overlapping OBBs and on the same edge
+   cases (entries exactly at the threshold and one ulp above, all kept,
+   one row suppressing all); keep masks must be bit-identical. Times both
+   at K = 4000.
 5. ``slice_rcnn`` (main path of slice 1): NeRF-RCNN full inference through
    ``RCNNTrainer.predict_scene`` at the bench configuration (a 200x200x132
    grid, VGG-EF, 11 classes, 20 rois, NMS 0.15, 25 detections, bf16
@@ -215,6 +222,64 @@ def phase_build():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "kernels": info})
 
 
+def check_sweep(results, name, kernel, plain, data, valid, thr):
+    """One NMS kernel case: the kernel's keep mask must equal the plain
+    sweep's bit for bit. Returns the kernel's keep."""
+    import torch
+
+    got = kernel(data, valid, thr)
+    want = plain(data, valid, thr)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    results.append({"case": name, "shape": list(valid.shape), "thr": thr,
+                    "kept": int(got.sum()), "valid": int(valid.sum()),
+                    "mismatches": mismatches})
+    if mismatches:
+        raise AssertionError(f"{kernel.__name__} kernel disagrees with the plain sweep: "
+                             f"{results[-1]}")
+    return got
+
+
+def nms_times(out, fn, reps, dev_reps):
+    """Into ``out``: ``kernel_ms`` of an NMS wrapper call by CUDA events, and
+    from the profiler ``device_ms`` (both phases), ``mask_device_ms``,
+    ``scan_device_ms`` and ``call_device_ms`` (all the call's device work,
+    the summary's zeroing included), each call counted by its one launch of
+    the scan."""
+    out["kernel_ms"] = cuda_ms(fn, reps=reps)
+    for key, match in (("device_ms", "nms_sweep"), ("mask_device_ms", "mask_kernel"),
+                       ("scan_device_ms", "scan_kernel"), ("call_device_ms", None)):
+        profiled(out, key, fn, dev_reps, "nms_sweep_scan", match)
+    return out
+
+
+def check_limit(kernel, matrix):
+    """A K above ``MAX_K`` must raise ValueError before any launch: boxes
+    ``(K, 6)``, or with ``matrix`` an IoU matrix ``(K, K)``."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import MAX_K
+
+    k = MAX_K + 1
+    data = torch.empty((k, k if matrix else 6), device="cuda")
+    before = kernel.launches
+    try:
+        kernel(data, torch.ones(k, dtype=torch.bool, device="cuda"), 0.5)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{kernel.__name__} took K = {k} > MAX_K = {MAX_K}")
+    if kernel.launches != before:
+        raise AssertionError(f"{kernel.__name__} counted a launch above MAX_K")
+    return {"k": k, "raised": "ValueError"}
+
+
+def tie_boxes(rng, k):
+    """AABBs with integer corners in [0, 4): many pairs' IoU is exactly 1/2."""
+    lo = rng.integers(0, 3, (k, 3))
+    return np.concatenate([lo, lo + rng.integers(1, 3, (k, 3))], 1).astype(np.float32)
+
+
 def phase_kernel_nms():
     import torch
 
@@ -222,35 +287,52 @@ def phase_kernel_nms():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    # k20000 and k32768 exceed the scan's shared-memory prefetch (K <= 14400)
+    # and read the mask through L2; k32768 is the wrappers' limit
     cases = [("k200", (200,), 40.0, 0.9), ("k1000", (1000,), 80.0, 0.9),
              ("k4097", (4097,), 120.0, 0.9), ("k10400", (10400,), 160.0, 0.9),
+             ("k20000", (20000,), 200.0, 0.9), ("k32768", (32768,), 240.0, 0.9),
              ("k1", (1,), 10.0, 1.0), ("all_invalid", (300,), 40.0, 0.0),
              ("batched_4x2000", (4, 2000), 100.0, 0.9)]
+    cases += [(f"k{k}", (k,), 20.0, 0.9) for k in (63, 64, 65, 127, 128, 129, 257)]
     results, inputs = [], {}
     for name, shape, size, p_valid in cases:
         boxes, valid = random_sorted_boxes(rng, shape, size, p_valid)
         b = torch.from_numpy(boxes).to(dev)
         v = torch.from_numpy(valid).to(dev)
-        got = nms_boxes(b, v, 0.15)
-        want = nms_boxes_plain(b, v, 0.15)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        results.append({"case": name, "shape": list(shape), "kept": int(got.sum()),
-                        "mismatches": mismatches})
-        if mismatches:
-            raise AssertionError(f"nms kernel disagrees with the plain sweep: {results[-1]}")
+        got = check_sweep(results, name, nms_boxes, nms_boxes_plain, b, v, 0.15)
         if name == "all_invalid" and bool(got.any()):
             raise AssertionError("all-invalid input kept a box")
         inputs[name] = (b, v, got)
+    # IoUs exactly on the threshold (kept) and one ulp above it (suppressed)
+    ties = torch.from_numpy(tie_boxes(rng, 300)).to(dev)
+    tv = torch.from_numpy(rng.uniform(size=300) < 0.9).to(dev)
+    half = np.float32(0.5)
+    kept = {}
+    for name, thr in (("iou_at_thr", half), ("iou_one_ulp_above_thr",
+                                             np.nextafter(half, np.float32(0)))):
+        kept[name] = int(check_sweep(results, name, nms_boxes, nms_boxes_plain, ties, tv,
+                                     float(thr)).sum())
+    if not kept["iou_one_ulp_above_thr"] < kept["iou_at_thr"]:
+        raise AssertionError(f"the tie case does not test the tie: {kept}")
+    same = torch.from_numpy(np.repeat(tie_boxes(rng, 1), 300, 0)).to(dev)
+    if int(check_sweep(results, "one_suppresses_all", nms_boxes, nms_boxes_plain, same,
+                       torch.ones(300, dtype=torch.bool, device=dev), 0.15).sum()) != 1:
+        raise AssertionError("one box repeated 300 times kept more than one")
+    boxes, _ = random_sorted_boxes(rng, (4, 1000), 100.0)
+    valid = np.stack([rng.uniform(size=1000) < p for p in (1.0, 0.6, 0.2, 0.0)])
+    check_sweep(results, "batched_valid_masks", nms_boxes, nms_boxes_plain,
+                torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), 0.15)
+    limit = check_limit(nms_boxes, matrix=False)
     timing = {}
     for name in ("k200", "k10400"):
         b, v, keep = inputs[name]
-        timing[name] = {
-            "kernel_ms": cuda_ms(lambda: nms_boxes(b, v, 0.15), reps=200 if name == "k200" else 20),
-            "plain_ms": cuda_ms(lambda: nms_boxes_plain(b, v, 0.15), reps=3, warmup=1),
-            "bound_ms": nms_bound_ms(keep)[0],
-        }
-    emit({"phase": "kernel_nms", "cases": results, "timing": timing})
+        timing[name] = nms_times({}, lambda: nms_boxes(b, v, 0.15),
+                                 reps=200 if name == "k200" else 20, dev_reps=20)
+        timing[name]["plain_ms"] = cuda_ms(lambda: nms_boxes_plain(b, v, 0.15), reps=3,
+                                           warmup=1)
+        timing[name]["bound_ms"] = nms_bound_ms(keep)[0]
+    emit({"phase": "kernel_nms", "cases": results, "limit": limit, "timing": timing})
     return timing
 
 
@@ -295,8 +377,9 @@ def phase_slice_rcnn():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = read_launches()
-    if launches["nms_boxes"] < 1:
-        raise AssertionError(f"the main path launched no NMS kernel: {launches}")
+    if launches["nms_boxes"] != 1:  # one image: one NMS call
+        raise AssertionError(f"the main path's one NMS call launched B1 "
+                             f"{launches['nms_boxes']} times: {launches}")
 
     n_det = int(det.valid.sum())
     if tuple(masks.shape) != (25, 200, 200, 132) or masks.dtype != torch.bool:
@@ -448,33 +531,52 @@ def phase_kernel_nms_iou():
              ("k4000", (4000,), 120.0, 0.9), ("k4096", (4096,), 120.0, 0.9),
              ("k4097", (4097,), 120.0, 0.9), ("k1", (1,), 10.0, 1.0),
              ("all_invalid", (300,), 30.0, 0.0), ("batched_4x1000", (4, 1000), 60.0, 0.9)]
+    cases += [(f"k{k}", (k,), 15.0, 0.9) for k in (63, 64, 65, 127, 128, 129, 257)]
     results, inputs = [], {}
     for name, shape, size, p_valid in cases:
         boxes, valid = random_sorted_obbs(rng, shape, size, p_valid)
         iou = obb_iou_matrix(torch.from_numpy(boxes).to(dev)).contiguous()
         v = torch.from_numpy(valid).to(dev)
-        got = nms_sweep(iou, v, 0.7)
-        want = nms_sweep_plain(iou, v, 0.7)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        results.append({"case": name, "shape": list(shape), "kept": int(got.sum()),
-                        "valid": int(v.sum()), "mismatches": mismatches})
-        if mismatches:
-            raise AssertionError(f"nms_sweep kernel disagrees with the plain sweep: {results[-1]}")
+        got = check_sweep(results, name, nms_sweep, nms_sweep_plain, iou, v, 0.7)
         if name == "all_invalid" and bool(got.any()):
             raise AssertionError("all-invalid input kept a box")
         if name == "k1" and not bool(got.all()):
             raise AssertionError("a single valid box was not kept")
         inputs[name] = (iou, v, got)
+    # entries exactly at the threshold (no suppression) and one ulp above it
+    thr = np.float32(0.7)
+    above = np.nextafter(thr, np.float32(1))
+    values = np.asarray([thr, above, np.nextafter(thr, np.float32(0)), 0.0], np.float32)
+    m = torch.from_numpy(rng.choice(values, (1000, 1000), p=[0.3, 0.03, 0.3, 0.37])).to(dev)
+    v = torch.from_numpy(rng.uniform(size=1000) < 0.9).to(dev)
+    got = check_sweep(results, "at_and_ulp_above_thr", nms_sweep, nms_sweep_plain, m, v,
+                      float(thr))
+    if not 0 < int(got.sum()) < int(v.sum()):
+        raise AssertionError("the tie case suppresses nothing or everything")
+    low = torch.from_numpy(rng.uniform(0, 0.7, (1000, 1000)).astype(np.float32)).to(dev)
+    ones = torch.ones(1000, dtype=torch.bool, device=dev)
+    if not bool(check_sweep(results, "all_kept", nms_sweep, nms_sweep_plain, low, ones,
+                            0.7).all()):
+        raise AssertionError("no IoU above the threshold, yet a box was suppressed")
+    low[0] = 1.0
+    if int(check_sweep(results, "one_suppresses_all", nms_sweep, nms_sweep_plain, low, ones,
+                       0.7).sum()) != 1:
+        raise AssertionError("row 0 above the threshold everywhere, yet more than one kept")
+    boxes, _ = random_sorted_obbs(rng, (4, 1000), 60.0)
+    valid = np.stack([rng.uniform(size=1000) < p for p in (1.0, 0.6, 0.2, 0.0)])
+    check_sweep(results, "batched_valid_masks", nms_sweep, nms_sweep_plain,
+                obb_iou_matrix(torch.from_numpy(boxes).to(dev)).contiguous(),
+                torch.from_numpy(valid).to(dev), 0.7)
+    del low, m
+    limit = check_limit(nms_sweep, matrix=True)
     iou, v, keep = inputs["k4000"]
     if not 0 < int(keep.sum()) < int(v.sum()):
         raise AssertionError("K = 4000 case suppresses nothing: not a test of the sweep")
-    timing = {"k4000": {
-        "kernel_ms": cuda_ms(lambda: nms_sweep(iou, v, 0.7), reps=20),
-        "plain_ms": cuda_ms(lambda: nms_sweep_plain(iou, v, 0.7), reps=3, warmup=1),
-        "bound_ms": sweep_bound_ms(keep)[0],
-    }}
-    emit({"phase": "kernel_nms_iou", "cases": results, "timing": timing})
+    timing = {"k4000": nms_times({}, lambda: nms_sweep(iou, v, 0.7), reps=20, dev_reps=20)}
+    timing["k4000"]["plain_ms"] = cuda_ms(lambda: nms_sweep_plain(iou, v, 0.7), reps=3,
+                                          warmup=1)
+    timing["k4000"]["bound_ms"] = sweep_bound_ms(keep)[0]
+    emit({"phase": "kernel_nms_iou", "cases": results, "limit": limit, "timing": timing})
     return timing
 
 
@@ -498,8 +600,9 @@ def phase_slice_rpn():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = read_launches()
-    if launches["nms_sweep"] < 1:
-        raise AssertionError(f"the RPN path launched no nms_sweep kernel: {launches}")
+    if launches["nms_sweep"] != 1:  # all levels in one NMS call
+        raise AssertionError(f"the RPN path's one NMS call launched B2 "
+                             f"{launches['nms_sweep']} times: {launches}")
 
     n = int(boxes.shape[0])
     if boxes.dim() != 2 or boxes.shape[1] != 7 or not 1 <= n <= cfg.post_nms_top_n:
@@ -1131,9 +1234,7 @@ def main():
     err = float((keep_k.int() - keep_p.int()).abs().max())
     if err:
         raise AssertionError("kernel disagrees on the scene's own NMS input")
-    k_ms = cuda_ms(lambda: nms_boxes(sboxes, svalid, 0.15), reps=200)
-    k_dev = device_ms(lambda: nms_boxes(sboxes, svalid, 0.15), 50, "nms_sweep_kernel",
-                      "nms_sweep_kernel")["ms"]
+    k_t = nms_times({}, lambda: nms_boxes(sboxes, svalid, 0.15), reps=200, dev_reps=50)
     bound_ms, bound_by = nms_bound_ms(keep_k)
     p_ms = cuda_ms(lambda: nms_boxes_plain(sboxes, svalid, 0.15), reps=5, warmup=1)
     phase_small_reference()
@@ -1144,9 +1245,7 @@ def main():
     err_iou = float((keep_k.int() - keep_p.int()).abs().max())
     if err_iou:
         raise AssertionError("nms_sweep kernel disagrees on the scene's own NMS input")
-    ki_ms = cuda_ms(lambda: nms_sweep(iou, ivalid, 0.7), reps=20)
-    ki_dev = device_ms(lambda: nms_sweep(iou, ivalid, 0.7), 10, "nms_sweep_iou_kernel",
-                       "nms_sweep_iou_kernel")["ms"]
+    ki_t = nms_times({}, lambda: nms_sweep(iou, ivalid, 0.7), reps=20, dev_reps=20)
     bound_iou_ms, bound_iou_by = sweep_bound_ms(keep_k)
     pi_ms = cuda_ms(lambda: nms_sweep_plain(iou, ivalid, 0.7), reps=3, warmup=1)
     kept = int(keep_k.sum())
@@ -1166,7 +1265,9 @@ def main():
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep.cu",
         "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:113",
         "launches": launches_rcnn["nms_boxes"], "max_abs_err": err,
-        "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "ms": k_t["kernel_ms"], "device_ms": k_t["device_ms"],
+        "mask_device_ms": k_t["mask_device_ms"], "scan_device_ms": k_t["scan_device_ms"],
+        "call_device_ms": k_t["call_device_ms"], "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
@@ -1175,7 +1276,9 @@ def main():
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep_iou.cu",
         "replaces": "instance_nerf_tpu/kernels/nms_pallas.py:157",
         "launches": launches_rpn["nms_sweep"], "max_abs_err": err_iou,
-        "ms": ki_ms, "device_ms": ki_dev, "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
+        "ms": ki_t["kernel_ms"], "device_ms": ki_t["device_ms"],
+        "mask_device_ms": ki_t["mask_device_ms"], "scan_device_ms": ki_t["scan_device_ms"],
+        "call_device_ms": ki_t["call_device_ms"], "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
         "random_k4000": timing_iou["k4000"],

@@ -1,123 +1,123 @@
-// Greedy 3D AABB NMS sweep with the IoU row computed in the kernel.
+// Greedy 3D AABB NMS sweep with the IoU computed in the kernel (B1).
 //
 // Replaces instance_nerf_tpu/kernels/nms_pallas.py:nms_boxes_pallas
 // (Pallas body _sweep_fused_kernel). Computes, for each independent problem
-// b, the greedy keep mask over K score-ordered boxes: box i is kept iff it is
-// valid and no earlier kept box has IoU > thr with it. Invalid boxes are
+// b, the greedy keep mask over K score-ordered boxes: box i is kept iff it
+// is valid and no earlier kept box j has IoU(j, i) > thr. Invalid boxes are
 // never kept and never suppress. The (K, K) IoU matrix never exists.
 //
-// What bounds it: the K-step dependency chain. Row i may only run once every
-// earlier row has settled whether i is suppressed, so a problem costs K
-// uniform flag reads and one block barrier per surviving row. The bytes
-// (28 B per box in, 1 B per box out) and the operations (about 18 per pair,
-// for each kept box against the later ones) are far below what the chain
-// costs; above the shared-memory budget each surviving row also waits on
-// L2 reads of the later boxes.
+// Design: the serial dependency is only in the keep decisions; every test
+// IoU(i, j) > thr is independent of them. So it runs in two phases.
 //
-// Design: one thread block per problem (grid = batch). The problem's boxes
-// sit in shared memory as structure-of-arrays (lo xyz, hi xyz, volume) when
-// they fit, and the suppression flags (one byte per box) always do, so the
-// whole chain stays on one SM with no round trip through device memory.
-// Above the shared-memory budget the box columns are read from global
-// memory (and L2). Every thread reads the same flag for row i, so the
-// branch and the barrier after a surviving row are uniform across the block.
+// 1. Mask pass (nms_sweep_mask_kernel), over the whole card: a grid of
+//    (64-column word w, 64-row tile t, problem), tiles left of the diagonal
+//    skipped. A block stages its column tile's 64 boxes (lo, hi, volume) in
+//    shared memory; each of its 64 threads computes one row's 64 IoUs and
+//    writes them as one word of the (B, K, W) uint64 mask of nms_scan.cuh
+//    (bit c of word w of row i: j = 64w + c, i < j < K, IoU(i, j) > thr),
+//    marking a nonzero word in the mask's summary. It reads the caller's
+//    (B, K, 6) boxes and bool valid bytes as they are.
+// 2. Scan (nms_scan.cuh): one block per problem walks the K / 64 tiles in
+//    groups of 8, one warp resolving each tile's diagonal word in registers
+//    while the others stage rows and OR the kept rows' later words into a
+//    shared-memory bitset.
 //
-// The IoU uses the exact formula of ops/boxes.py:box_iou_3d with
-// IEEE-rounded intrinsics (no FMA contraction, no fast division), so keep
-// decisions are bit-identical to the plain PyTorch sweep.
+// What bounds it: the scan's chain of about K / 64 tile steps in one warp,
+// and for dense masks the L2 reads of the kept rows' words by one SM; the
+// mask pass's K^2 / 2 IoU tests (about 18 operations each, the division
+// only where the boxes intersect) run over the whole card and take a
+// fraction of that at the path's sizes.
+//
+// The IoU uses the exact formula of ops/boxes.py:box_iou_3d, each volume
+// computed here as (dx * dy) * dz as ops/boxes.py:aabb_volume rounds it,
+// with IEEE-rounded intrinsics (no FMA contraction, no fast division), so
+// keep decisions are bit-identical to the plain PyTorch sweep. Where the
+// intersection is 0 the quotient is 0, so the division is skipped there.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nms_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// Shared memory a block may use on sm_90 (227 KB), and the largest K whose
-// boxes (28 B) and flags (1 B) fit in it.
-constexpr int kSmemBytes = 232448;
-constexpr int kSmemMaxK = kSmemBytes / 29;
+using nms::u64;
 
-template <bool kSmemBoxes>
-__global__ void __launch_bounds__(kThreads)
-nms_sweep_kernel(const float* __restrict__ soa,      // (B, 7, K)
-                 const uint8_t* __restrict__ valid,  // (B, K)
-                 float thr, int k,
-                 uint8_t* __restrict__ keep) {       // (B, K)
-  extern __shared__ unsigned char smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* g = soa + (size_t)b * 7 * k;
-  const uint8_t* gvalid = valid + (size_t)b * k;
-  uint8_t* gkeep = keep + (size_t)b * k;
+__device__ __forceinline__ float volume(float x1, float y1, float z1, float x2, float y2,
+                                        float z2) {
+  return __fmul_rn(__fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1)), __fsub_rn(z2, z1));
+}
 
-  const float* cols;  // 7 columns of length k: x1 y1 z1 x2 y2 z2 vol
-  uint8_t* sup;
-  if (kSmemBoxes) {
-    float* s = reinterpret_cast<float*>(smem);
-    for (int t = tid; t < 7 * k; t += kThreads) s[t] = g[t];
-    cols = s;
-    sup = smem + (size_t)7 * k * sizeof(float);
+__global__ void __launch_bounds__(nms::kTile)
+nms_sweep_mask_kernel(const float* __restrict__ boxes,  // (B, K, 6)
+                      float thr, int k,
+                      u64* __restrict__ mask,           // (B, K, W)
+                      u64* __restrict__ sum) {          // (B, K, ceil(W / 64))
+  const int w = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
+  if (w < t) return;  // left of the diagonal: never read
+  const int nw = nms::words(k);
+  __shared__ float4 lo_s[nms::kTile];  // x1 y1 z1 volume
+  __shared__ float4 hi_s[nms::kTile];  // x2 y2 z2 -
+  const float* g = boxes + (size_t)b * k * 6;
+  const int c = threadIdx.x;
+  const int j = w * nms::kTile + c;
+  if (j < k) {
+    const float* p = g + (size_t)j * 6;
+    lo_s[c] = make_float4(p[0], p[1], p[2], volume(p[0], p[1], p[2], p[3], p[4], p[5]));
+    hi_s[c] = make_float4(p[3], p[4], p[5], 0.f);
   } else {
-    cols = g;
-    sup = smem;
+    lo_s[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    hi_s[c] = lo_s[c];
   }
-  for (int t = tid; t < k; t += kThreads) sup[t] = gvalid[t] ? 0 : 1;
+  const int i = t * nms::kTile + c;
+  float ax1 = 0.f, ay1 = 0.f, az1 = 0.f, ax2 = 0.f, ay2 = 0.f, az2 = 0.f;
+  if (i < k) {
+    const float* p = g + (size_t)i * 6;
+    ax1 = p[0], ay1 = p[1], az1 = p[2], ax2 = p[3], ay2 = p[4], az2 = p[5];
+  }
+  const float avol = volume(ax1, ay1, az1, ax2, ay2, az2);
   __syncthreads();
+  if (i >= k) return;
 
-  const float* x1 = cols;
-  const float* y1 = cols + k;
-  const float* z1 = cols + 2 * k;
-  const float* x2 = cols + 3 * k;
-  const float* y2 = cols + 4 * k;
-  const float* z2 = cols + 5 * k;
-  const float* vol = cols + 6 * k;
-
-  for (int i = 0; i < k; ++i) {
-    // sup[i] was last written before a barrier every thread has passed,
-    // so `alive` is the same in every thread of the block. An invalid box
-    // starts suppressed: it is never kept and never suppresses.
-    const bool alive = sup[i] == 0;
-    if (tid == 0) gkeep[i] = alive ? 1 : 0;
-    if (!alive) continue;
-    const float ax1 = x1[i], ay1 = y1[i], az1 = z1[i];
-    const float ax2 = x2[i], ay2 = y2[i], az2 = z2[i];
-    const float avol = vol[i];
-    for (int j = i + 1 + tid; j < k; j += kThreads) {
-      const float wx = fmaxf(__fsub_rn(fminf(ax2, x2[j]), fmaxf(ax1, x1[j])), 0.f);
-      const float wy = fmaxf(__fsub_rn(fminf(ay2, y2[j]), fmaxf(ay1, y1[j])), 0.f);
-      const float wz = fmaxf(__fsub_rn(fminf(az2, z2[j]), fmaxf(az1, z1[j])), 0.f);
-      const float inter = __fmul_rn(__fmul_rn(wx, wy), wz);
-      const float uni = __fsub_rn(__fadd_rn(avol, vol[j]), inter);
-      const float iou = uni > 0.f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.f;
-      if (iou > thr) sup[j] = 1;
-    }
-    __syncthreads();
+  u64 word = 0;
+#pragma unroll 4
+  for (int q = 0; q < nms::kTile; ++q) {
+    const float4 l = lo_s[q], h = hi_s[q];
+    const float wx = fmaxf(__fsub_rn(fminf(ax2, h.x), fmaxf(ax1, l.x)), 0.f);
+    const float wy = fmaxf(__fsub_rn(fminf(ay2, h.y), fmaxf(ay1, l.y)), 0.f);
+    const float wz = fmaxf(__fsub_rn(fminf(az2, h.z), fmaxf(az1, l.z)), 0.f);
+    const float inter = __fmul_rn(__fmul_rn(wx, wy), wz);
+    const float uni = __fsub_rn(__fadd_rn(avol, l.w), inter);
+    float iou = 0.f;
+    if (inter > 0.f && uni > 0.f) iou = __fdiv_rn(inter, fmaxf(uni, 1e-12f));
+    word |= (u64)(iou > thr) << q;
   }
+  const int first = i - w * nms::kTile + 1;  // lowest bit with j > i
+  if (first > 0) word = first >= nms::kTile ? 0 : word & (~0ull << first);
+  const int end = k - w * nms::kTile;        // bits with j < k
+  if (end < nms::kTile) word &= (1ull << end) - 1;
+  nms::store_word(mask, sum, nw, (size_t)b * k + i, w, word);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the sweep on `stream`. Returns cudaGetLastError() after the launch
-// (0 on success); the wrapper raises on anything else.
-int nms_sweep_launch(const float* soa, const uint8_t* valid, float thr,
-                     int batch, int k, uint8_t* keep, void* stream) {
+// Launch both phases on `stream`: `boxes` is (B, K, 6) f32, `valid` and
+// `keep` (B, K) bool, `workspace` the uint64 mask and summary (nms_scan.cuh)
+// the caller allocated. Returns the first CUDA error of the launches (0 on
+// success); the wrapper raises on anything else.
+int nms_sweep_launch(const float* boxes, const uint8_t* valid, float thr, int batch, int k,
+                     u64* workspace, uint8_t* keep, void* stream) {
   if (batch <= 0 || k <= 0) return 0;
-  if (k > kSmemBytes) return (int)cudaErrorInvalidValue;  // flags do not fit
+  if (k > nms::kMaxK || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= kSmemMaxK) {
-    const size_t bytes = (size_t)k * 29;
-    cudaFuncSetAttribute(nms_sweep_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    nms_sweep_kernel<true><<<batch, kThreads, bytes, s>>>(soa, valid, thr, k, keep);
-  } else {
-    const size_t bytes = (size_t)k;
-    cudaFuncSetAttribute(nms_sweep_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    nms_sweep_kernel<false><<<batch, kThreads, bytes, s>>>(soa, valid, thr, k, keep);
-  }
-  return (int)cudaGetLastError();
+  const int nw = nms::words(k);
+  u64* sum = nms::summary_of(workspace, batch, k);
+  cudaError_t err = cudaMemsetAsync(sum, 0, nms::summary_bytes(batch, k), s);
+  if (err != cudaSuccess) return (int)err;
+  nms_sweep_mask_kernel<<<dim3(nw, nw, batch), nms::kTile, 0, s>>>(boxes, thr, k, workspace,
+                                                                    sum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)nms::launch_scan(workspace, valid, batch, k, keep, s);
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``_build/<name>-<hash>.so`` inside the package at
-first use. The hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one loads from the cache. Nothing is built when a
-module is imported.
+first use. The hash covers the source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads from the cache. Nothing is built when a module is imported.
 
 Division stays IEEE-rounded (no ``--use_fast_math``): the NMS keep
 decisions must match the plain PyTorch version bit for bit, and the
@@ -51,8 +51,12 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header (csrc/*.cuh) it may include
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src, *(os.path.join(CSRC_DIR, h) for h in headers)]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -7,23 +7,31 @@ versions (the JAX package keeps both sweeps in ``kernels/nms_pallas.py``).
   over a precomputed score-ordered IoU matrix, which the OBB path fills
   with the rotated IoU (``csrc/nms_sweep_iou.cu``).
 
-Both run one thread block per independent problem with the suppression
-flags in shared memory; both are bound by the K-step dependency chain (one
-barrier per surviving row), not by bytes or operations. See the sources
-for the designs.
+Both run in two phases (see ``csrc/nms_scan.cuh`` and the sources): a mask
+pass over all pairs across the card writes every "IoU(i, j) > thr" (j > i)
+as one bit of a ``(B, K, ceil(K / 64))`` uint64 mask, with a summary of its
+nonzero words, then one block per problem scans it 64 rows at a time. The
+wrapper allocates that workspace (about K^2 / 8 bytes a problem) and takes
+K up to ``MAX_K``; above that it raises.
 
 A wrapper takes a CUDA tensor to its kernel and a CPU tensor to its plain
-version; a CUDA tensor never falls back to the plain version.
+version; a CUDA tensor never falls back to the plain version. Each call
+counts one launch, whatever the number of CUDA launches inside.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from instance_nerf_tpu_torch.kernels import build
 from instance_nerf_tpu_torch.ops.boxes import aabb_volume
 
-SMEM_BYTES = 232448  # shared memory a block may use on sm_90 (227 KB)
+# the largest K the kernels take (csrc/nms_scan.cuh kMaxK): a mask of 128 MB
+# a problem
+MAX_K = 32768
+TILE = 64  # mask bits a word
 
 
 def _check(sboxes: torch.Tensor, svalid: torch.Tensor) -> None:
@@ -82,27 +90,9 @@ def nms_boxes(sboxes: torch.Tensor, svalid: torch.Tensor,
     if not sboxes.is_contiguous() or not svalid.is_contiguous():
         raise ValueError("sboxes and svalid must be contiguous")
     batched = sboxes.dim() == 3
-    boxes = sboxes if batched else sboxes[None]
-    valid = svalid if batched else svalid[None]
-    b, k = boxes.shape[:2]
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    if b == 0 or k == 0:
-        return keep if batched else keep[0]
-    if k > SMEM_BYTES:  # one flag byte per box must fit in shared memory
-        raise ValueError(f"K={k} exceeds the kernel's shared-memory flag budget")
-    lib = _lib("nms_sweep", "nms_sweep_launch")
-    # structure of arrays (B, 7, K): lo xyz, hi xyz, volume as (dx*dy)*dz
-    soa = torch.cat([boxes, aabb_volume(boxes)[..., None]], -1)
-    soa = soa.transpose(1, 2).contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.nms_sweep_launch(
-            soa.data_ptr(), valid_u8.data_ptr(), ctypes.c_float(iou_threshold),
-            b, k, keep.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"nms_sweep launch failed: CUDA error {err}")
-    nms_boxes.launches += 1
+    b, k = (sboxes.shape[0] if batched else 1), sboxes.shape[-2]
+    keep = _launch("nms_sweep", sboxes, svalid, iou_threshold, b, k)
+    nms_boxes.launches += int(keep.numel() > 0)
     return keep if batched else keep[0]
 
 
@@ -156,37 +146,41 @@ def nms_sweep(iou: torch.Tensor, svalid: torch.Tensor,
         raise ValueError("iou and svalid must be contiguous")
     batched = iou.dim() == 3
     b, k = (iou.shape[0] if batched else 1), iou.shape[-1]
-    keep = torch.empty((b, k), dtype=torch.bool, device=iou.device)
-    if b == 0 or k == 0:
-        return keep if batched else keep[0]
-    if k > SMEM_BYTES:  # one flag byte per box must fit in shared memory
-        raise ValueError(f"K={k} exceeds the kernel's shared-memory flag budget")
-    lib = _lib("nms_sweep_iou", "nms_sweep_iou_launch")
-    valid_u8 = svalid.to(torch.uint8).contiguous()
-    with torch.cuda.device(iou.device):
-        stream = torch.cuda.current_stream(iou.device).cuda_stream
-        err = lib.nms_sweep_iou_launch(
-            iou.data_ptr(), valid_u8.data_ptr(), ctypes.c_float(iou_threshold),
-            b, k, keep.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"nms_sweep_iou launch failed: CUDA error {err}")
-    nms_sweep.launches += 1
+    keep = _launch("nms_sweep_iou", iou, svalid, iou_threshold, b, k)
+    nms_sweep.launches += int(keep.numel() > 0)
     return keep if batched else keep[0]
 
 
 nms_sweep.launches = 0
 
 
-def _lib(name: str, launch: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with its launch function typed:
-    (float*, uint8*, float thr, int batch, int k, uint8*, stream) -> int."""
-    from instance_nerf_tpu_torch.kernels import build
+def _launch(name: str, data: torch.Tensor, svalid: torch.Tensor, iou_threshold: float,
+            b: int, k: int) -> torch.Tensor:
+    """Both phases of ``csrc/<name>.cu`` on ``data`` (boxes or IoU matrix)
+    -> ``(B, K)`` bool keep; nothing is launched for an empty problem."""
+    keep = torch.empty((b, k), dtype=torch.bool, device=data.device)
+    if b == 0 or k == 0:
+        return keep
+    if k > MAX_K:
+        raise ValueError(f"K={k} exceeds the NMS kernels' limit of {MAX_K} boxes")
+    if svalid.dtype != torch.bool:  # the kernels read one 0/1 byte per box
+        svalid = svalid != 0
+    # the workspace: the (B, K, W) uint64 suppression mask and its
+    # (B, K, ceil(W / 64)) summary of nonzero words, as int64 words
+    nw = -(-k // TILE)
+    workspace = torch.empty(b * k * (nw + -(-nw // TILE)), dtype=torch.int64,
+                            device=data.device)
+    err = build.call_on_stream(_launch_fn(name), data.device.index, data.data_ptr(),
+                               svalid.data_ptr(), iou_threshold, b, k, workspace.data_ptr(),
+                               keep.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return keep
 
-    lib = build.load(name)
-    fn = getattr(lib, launch)
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn(name: str):
+    """``csrc/<name>.cu``'s launch function, typed (built on first use):
+    (data*, valid*, float thr, int batch, int k, workspace*, keep*, stream) -> int."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build.typed(name, f"{name}_launch", [p, p, ctypes.c_float, i, i, p, p, p])

@@ -258,3 +258,220 @@ def test_obb_batched_nms_mask_per_level_matches_jax():
         alone = TN.nms_mask(torch.from_numpy(boxes[m]), torch.from_numpy(scores[m]), 0.3,
                             torch.from_numpy(valid[m]))
         np.testing.assert_array_equal(got.numpy()[m], alone.numpy())
+
+
+# The CUDA kernels' algorithm (csrc/nms_scan.cuh), replayed in numpy. Phase
+# 1 writes a (K, W) uint64 mask, W = ceil(K / 64), bit c of word w of row i
+# set iff j = 64 w + c has i < j < K and IoU(i, j) > thr, only the words
+# w >= i // 64, and a summary with bit w of row i set iff that word is
+# nonzero. Phase 2 loads only the words the summary marks and scans the
+# tiles in groups of GROUP, in the kernel's order: warp 0 resolves a
+# group's tiles (the window's words at once); meanwhile the helpers OR the
+# previous group's kept rows past this window; then the block ORs this
+# group's kept rows into the next window. Change this replay with the
+# kernels' mask layout or scan.
+
+TILE = 64
+GROUP = 8
+FULL = (1 << 64) - 1
+# what the words left of the diagonal hold here: the scan must never read them
+GARBAGE = np.uint64(0xDEADBEEFDEADBEEF)
+
+
+def _mask_words(hit):
+    """Phase 1: the (K, W) mask of a (K, K) bool matrix of tests
+    ``IoU(i, j) > thr``, garbage left of the diagonal, and the summary of
+    the written nonzero words (a Python int of W bits a row)."""
+    k = hit.shape[0]
+    nw = -(-k // TILE)
+    padded = np.zeros((k, nw * TILE), bool)
+    padded[:, :k] = np.triu(hit, 1)
+    bits = padded.reshape(k, nw, TILE).astype(np.uint64) << np.arange(TILE, dtype=np.uint64)
+    words = np.bitwise_or.reduce(bits, axis=-1)
+    written = np.arange(nw)[None, :] >= (np.arange(k) // TILE)[:, None]
+    summary = [sum(1 << w for w in np.flatnonzero(written[i] & (words[i] != 0)))
+               for i in range(k)]
+    return np.where(written, words, GARBAGE), summary
+
+
+def _kernel_iou(boxes):
+    """B1's IoU(i, j) as its mask pass computes it: f32, each volume as
+    ``(dx * dy) * dz``, the division only where the boxes intersect."""
+    b = boxes.astype(np.float32)
+    vol = ((b[:, 3] - b[:, 0]) * (b[:, 4] - b[:, 1])) * (b[:, 5] - b[:, 2])
+    whd = np.maximum(np.minimum(b[:, None, 3:], b[None, :, 3:])
+                     - np.maximum(b[:, None, :3], b[None, :, :3]), np.float32(0))
+    inter = (whd[..., 0] * whd[..., 1]) * whd[..., 2]
+    union = (vol[:, None] + vol[None, :]) - inter
+    iou = np.zeros_like(inter)
+    hit = (inter > 0) & (union > 0)
+    iou[hit] = inter[hit] / np.maximum(union[hit], np.float32(1e-12))
+    return iou
+
+
+def _scan(mask, summary, valid):
+    """Phase 2: the scan of one problem's mask -> (K,) bool keep."""
+    k, nw = mask.shape
+    m = mask.tolist()  # Python ints
+
+    def word(i, w):  # only the words the summary marks are loaded
+        return m[i][w] if (summary[i] >> w) & 1 else 0
+
+    removed = [0] * nw
+    for i in range(nw * TILE):
+        if i >= k or not valid[i]:
+            removed[i // TILE] |= 1 << (i % TILE)
+    prev = []
+    for w0 in range(0, nw, GROUP):
+        kept_rows = []
+        for t in range(w0, min(w0 + GROUP, nw)):  # warp 0
+            rem, base = removed[t], t * TILE
+            # the diagonal words of the live rows (a removed row's reads as 0)
+            diag = [0 if (rem >> r) & 1 else word(base + r, t)
+                    for r in range(min(TILE, k - base))]
+            todo = ~rem & sum(1 << r for r, d in enumerate(diag) if d) & FULL
+            while todo:
+                r = (todo & -todo).bit_length() - 1
+                rem |= diag[r]
+                todo &= (todo - 1) & ~diag[r]
+            removed[t] = rem
+            kept = [base + r for r in range(len(diag)) if not (rem >> r) & 1]
+            for u in range(t + 1, min(w0 + GROUP, nw)):
+                for i in kept:
+                    removed[u] |= word(i, u)
+            kept_rows += kept
+        for i in prev:  # the helpers: the previous group, past this window
+            for w in range(w0 + GROUP, nw):
+                removed[w] |= word(i, w)
+        for i in kept_rows:  # after the barrier: the next window
+            for w in range(w0 + GROUP, min(w0 + 2 * GROUP, nw)):
+                removed[w] |= word(i, w)
+        prev = kept_rows
+    return np.array([not (removed[i // TILE] >> (i % TILE)) & 1 for i in range(k)])
+
+
+def _replay(hit, valid):
+    hit, valid = np.asarray(hit), np.asarray(valid)
+    if hit.ndim == 3:
+        return np.stack([_scan(*_mask_words(h), v) for h, v in zip(hit, valid)])
+    return _scan(*_mask_words(hit), valid)
+
+
+# 2049: five groups of the scan, so its far OR (past the next window) runs
+EDGE_K = [1, 63, 64, 65, 127, 128, 129, 257, 1000, 2049]
+F32_THR = np.float32(0.7)
+ULP_ABOVE = np.nextafter(F32_THR, np.float32(1))
+
+
+def _iou_sweep_case(name):
+    """(iou, valid, thr) of one B2 case."""
+    if name.startswith("k"):
+        k = int(name[1:])
+        iou, valid = _iou_case(k, k, p_valid=1.0 if k == 1 else 0.9)
+        return iou, valid, 0.7
+    rng = np.random.default_rng(9)
+    k = 300
+    valid = rng.uniform(size=k) < 0.9
+    if name == "at_and_ulp_above_thr":  # only exact ties and one-ulp misses
+        choice = [F32_THR, ULP_ABOVE, np.nextafter(F32_THR, np.float32(0)), np.float32(0)]
+        iou = rng.choice(np.asarray(choice, np.float32), (k, k), p=[0.3, 0.05, 0.3, 0.35])
+        return iou, valid, float(F32_THR)
+    iou = (rng.uniform(0, 0.7, (k, k))).astype(np.float32)
+    if name == "all_invalid":
+        return iou, np.zeros(k, bool), 0.7
+    if name == "all_kept":
+        return iou, np.ones(k, bool), 0.7
+    if name == "one_suppresses_all":
+        iou[0] = 1.0
+        return iou, np.ones(k, bool), 0.7
+    assert name == "batched_valid_masks"
+    iou = (rng.uniform(0, 1, (3, 150, 150)) ** 4).astype(np.float32)
+    valid = np.stack([rng.uniform(size=150) < p for p in (1.0, 0.6, 0.2)])
+    return iou, valid, 0.7
+
+
+@pytest.mark.parametrize("name", [f"k{k}" for k in EDGE_K] + [
+    "at_and_ulp_above_thr", "all_invalid", "all_kept", "one_suppresses_all",
+    "batched_valid_masks"])
+def test_bitmask_replay_of_iou_sweep(name):
+    """B2's mask pass and scan (replayed) == the plain sweep == the Pallas
+    sweep in interpret mode."""
+    iou, valid, thr = _iou_sweep_case(name)
+    got = _replay(iou > np.float32(thr), valid)
+    np.testing.assert_array_equal(got, _sweep_plain(iou, valid, thr))
+    pallas = lambda m, v: nms_sweep_pallas(m, v, thr, interpret=True)  # noqa: E731
+    if iou.ndim == 3:
+        pallas = jax.vmap(pallas)
+    np.testing.assert_array_equal(got, np.asarray(pallas(jnp.asarray(iou), jnp.asarray(valid))))
+    if name == "at_and_ulp_above_thr":
+        assert (iou == F32_THR).any() and (iou == ULP_ABOVE).any()
+        assert 0 < got.sum() < valid.sum()
+    expect = {"all_invalid": 0, "all_kept": valid.sum(), "one_suppresses_all": 1}
+    assert got.sum() == expect.get(name, got.sum())
+
+
+def _box_sweep_case(name):
+    """(boxes, valid, thr) of one B1 case."""
+    if name.startswith("k"):
+        k = int(name[1:])
+        boxes, valid = _sorted_case(k, k, size=20.0 if k < 1000 else 40.0,
+                                    p_valid=1.0 if k == 1 else 0.9)
+        return boxes, valid, 0.3
+    rng = np.random.default_rng(10)
+    k = 300
+    if name.startswith("iou_"):
+        # integer corners in [0, 4): many pairs' IoU is exactly 1/2
+        lo = rng.integers(0, 3, (k, 3))
+        boxes = np.concatenate([lo, lo + rng.integers(1, 3, (k, 3))], 1).astype(np.float32)
+        half = np.float32(0.5)
+        thr = half if name == "iou_at_thr" else np.nextafter(half, np.float32(0))
+        return boxes, rng.uniform(size=k) < 0.9, float(thr)
+    boxes = random_aabbs(rng, k, size=20.0)
+    if name == "all_invalid":
+        return boxes, np.zeros(k, bool), 0.3
+    if name == "all_kept":  # a 10 x 10 x 3 lattice of disjoint unit boxes
+        lo = np.stack(np.meshgrid(*(np.arange(n) * 2.0 for n in (10, 10, 3))), -1).reshape(-1, 3)
+        return np.concatenate([lo, lo + 1], 1).astype(np.float32), np.ones(k, bool), 0.3
+    if name == "one_suppresses_all":  # one box, k times
+        return np.repeat(boxes[:1], k, 0), np.ones(k, bool), 0.3
+    assert name == "batched_valid_masks"
+    boxes = np.stack([random_aabbs(rng, 150, size=20.0) for _ in range(3)])
+    valid = np.stack([rng.uniform(size=150) < p for p in (1.0, 0.6, 0.2)])
+    return boxes, valid, 0.3
+
+
+@pytest.mark.parametrize("name", [f"k{k}" for k in EDGE_K] + [
+    "iou_at_thr", "iou_one_ulp_above_thr", "all_invalid", "all_kept", "one_suppresses_all",
+    "batched_valid_masks"])
+def test_bitmask_replay_of_box_sweep(name):
+    """B1's mask pass (its IoU arithmetic) and scan (replayed) == the plain
+    sweep == the Pallas sweep in interpret mode."""
+    boxes, valid, thr = _box_sweep_case(name)
+    batched = boxes.ndim == 3
+    ious = np.stack([_kernel_iou(b) for b in boxes]) if batched else _kernel_iou(boxes)
+    got = _replay(ious > np.float32(thr), valid)
+    np.testing.assert_array_equal(got, _plain(boxes, valid, thr))
+    pallas = lambda b, v: nms_boxes_pallas(b, v, thr, interpret=True)  # noqa: E731
+    if batched:
+        pallas = jax.vmap(pallas)
+    np.testing.assert_array_equal(got, np.asarray(pallas(jnp.asarray(boxes), jnp.asarray(valid))))
+    if name.startswith("iou_"):
+        assert (ious == np.float32(0.5)).any()
+        assert 0 < got.sum() < valid.sum()
+    if name.startswith("k") and len(boxes) >= 64:
+        assert 0 < got.sum() < valid.sum()
+    expect = {"all_invalid": 0, "all_kept": valid.sum(), "one_suppresses_all": 1}
+    assert got.sum() == expect.get(name, got.sum())
+
+
+def test_bitmask_replay_never_reads_left_of_the_diagonal():
+    """The summary marks only written words, so the garbage left of the
+    diagonal is never loaded: with it set to zero the keep mask is the
+    same."""
+    iou, valid, _ = _iou_sweep_case("k1000")
+    mask, summary = _mask_words(iou > F32_THR)
+    written = mask != GARBAGE
+    assert (~written).sum() > 0
+    assert all((summary[i] >> w) & 1 == 0 for i, w in zip(*np.nonzero(~written)))
+    clean = np.where(written, mask, np.uint64(0))
+    np.testing.assert_array_equal(_scan(mask, summary, valid), _scan(clean, summary, valid))
