@@ -36,6 +36,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    Reports the time by stage.
 8. ``small_reference_rpn``: the RPN in f32 on a small input, rotated and
    AABB, card against the port's CPU reference.
+8a. ``slice_fcos`` (main path of slice 4): FCOS proposal inference through
+   ``FCOSTrainer.predict_scene`` at the JAX trainer's defaults (VGG-EF, 4
+   tower convs of 256 channels, strides 4..32, 2500 candidates a level
+   and 2500 after the NMS at 0.3, bf16, seeded random weights) on a 160^3
+   grid, AABB (B1, K = 10,000 of which 6,125 valid) then rotated (the
+   rotated IoU of the 6,125 valid candidates, swept by B2). Each must
+   launch its kernel once and equal a re-run of the post-processing with
+   the plain sweep; reports ``benchmark``, ``profile`` and each kernel's
+   times on the scene's own NMS input beside its plain version and bound.
+8b. ``small_reference_fcos``: FCOS in f32 on a 64^3 grid, both box modes,
+   card against the port's CPU reference.
+8c. ``eval``: the eval modes through the CLIs on a 4-scene dataset
+   written by the port's ``write_dataset``: ``run_fcos`` (both box modes),
+   ``run_rpn`` exporting proposals, level features and voxel scores, and
+   ``run_rcnn`` on those proposals; metrics with the JAX trainers' keys,
+   finite, and files in the JAX package's layout.
 9. ``slice_field`` (main path of slice 3): instance-field training through
    ``InstanceFieldTrainer.train`` at the JAX CLI's default model (hash
    encoding, 16 levels, T = 2^19, F = 2, resolutions 16..1024, width 64,
@@ -69,7 +85,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    CPU run from the same weights, rays and draws: losses, gradients and
    params over rgb -> instance -> rgb.
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
-   launches on its path, error, times (``ms``, ``device_ms``) and bound.
+   launches on its path, error, times (``ms``, ``device_ms``) and bound;
+   B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
+   ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...).
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -129,7 +147,7 @@ def device_ms(fn, reps: int, marker: str, match: str | None = None) -> dict:
     """Device time per call of ``fn`` from ``torch.profiler`` (CUDA
     activity): the summed durations of the device activities (kernels,
     memsets) whose name contains ``match``, or of all of them, over the
-    calls the trace holds (``ms``; None where it holds none).
+    calls the trace holds (``ms``).
 
     A trace around a run of calls misses the first call's activities, and
     they turn up in the next trace of the process. So only activities that
@@ -137,15 +155,19 @@ def device_ms(fn, reps: int, marker: str, match: str | None = None) -> dict:
     annotation on the device timeline not among them), and the time is
     divided by the calls seen, each counted by its one launch of the kernel
     named ``marker``, not by the calls made. A trace that holds fewer than
-    half of them is taken again, up to three times. ``per_call`` is the
-    activities per call counted (what the time sums), ``calls_seen`` the
-    calls counted of ``reps``."""
+    all of them is taken again, up to three times, and the fullest is kept.
+    Where it still holds fewer, only a reading of the marker's own
+    activities (``match == marker``) counts each call it sums; any other
+    may sum activities of a call whose marker was lost, so ``ms`` is None.
+    ``per_call`` is the activities per call counted (what the time sums),
+    ``calls_seen`` the calls counted of ``reps``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
+    best = (-1, [])
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("device_ms_calls"):
@@ -158,10 +180,14 @@ def device_ms(fn, reps: int, marker: str, match: str | None = None) -> dict:
         device = [e for e in events if e.device_type == DeviceType.CUDA
                   and e.time_range.start >= t0 and e.name != "device_ms_calls"]
         calls = sum(marker in e.name for e in device)
-        if 2 * calls >= reps:
+        if calls > best[0]:
+            best = (calls, device)
+        if calls >= reps:
             break
+    calls, device = best
     us = [e.time_range.elapsed_us() for e in device if match is None or match in e.name]
-    return {"ms": sum(us) / calls / 1e3 if calls and us else None,
+    counted = calls >= reps or match == marker
+    return {"ms": sum(us) / calls / 1e3 if calls and us and counted else None,
             "per_call": len(us) / calls if calls else None, "calls_seen": calls}
 
 
@@ -242,14 +268,17 @@ def check_sweep(results, name, kernel, plain, data, valid, thr):
 
 def nms_times(out, fn, reps, dev_reps):
     """Into ``out``: ``kernel_ms`` of an NMS wrapper call by CUDA events, and
-    from the profiler ``device_ms`` (both phases), ``mask_device_ms``,
-    ``scan_device_ms`` and ``call_device_ms`` (all the call's device work,
-    the summary's zeroing included), each call counted by its one launch of
-    the scan."""
+    from the profiler ``mask_device_ms`` and ``scan_device_ms`` (each phase's
+    kernel counted by its own launches), ``device_ms`` their sum, and
+    ``call_device_ms`` (all the call's device work, the summary's zeroing
+    included; None where the trace lost a call)."""
     out["kernel_ms"] = cuda_ms(fn, reps=reps)
-    for key, match in (("device_ms", "nms_sweep"), ("mask_device_ms", "mask_kernel"),
-                       ("scan_device_ms", "scan_kernel"), ("call_device_ms", None)):
-        profiled(out, key, fn, dev_reps, "nms_sweep_scan", match)
+    for key, marker, match in (("mask_device_ms", "mask_kernel", "mask_kernel"),
+                               ("scan_device_ms", "nms_sweep_scan", "nms_sweep_scan"),
+                               ("call_device_ms", "nms_sweep_scan", None)):
+        profiled(out, key, fn, dev_reps, marker, match)
+    phases = (out["mask_device_ms"], out["scan_device_ms"])
+    out["device_ms"] = None if None in phases else sum(phases)
     return out
 
 
@@ -331,20 +360,27 @@ def phase_kernel_nms():
                                  reps=200 if name == "k200" else 20, dev_reps=20)
         timing[name]["plain_ms"] = cuda_ms(lambda: nms_boxes_plain(b, v, 0.15), reps=3,
                                            warmup=1)
-        timing[name]["bound_ms"] = nms_bound_ms(keep)[0]
+        timing[name]["bound_ms"] = nms_bound_ms(keep, v)[0]
     emit({"phase": "kernel_nms", "cases": results, "limit": limit, "timing": timing})
     return timing
 
 
-def nms_bound_ms(keep):
-    """Least time for the sweep on these inputs: the boxes (24 B) and valid
-    flag (1 B) read once and the keep flag (1 B) written once per box, and
-    the IoU tests this data needs (each kept box against every later box)."""
+def later_valid_pairs(keep, valid):
+    """The pairs a greedy sweep must test on these inputs: each kept box
+    against every later valid box (an invalid box never suppresses, so its
+    tests are not needed)."""
     k = keep.shape[-1]
-    kept_idx = keep.reshape(-1, k).nonzero()[:, 1].double()
-    pairs = float((k - 1 - kept_idx).sum())
-    byte_s = keep.numel() * 26 / PEAK_BYTES_PER_S
-    ops_s = pairs * NMS_OPS_PER_PAIR / PEAK_F32_OPS_PER_S
+    v = valid.reshape(-1, k).long()
+    later = v.sum(1, keepdim=True) - v.cumsum(1)  # valid boxes after each row
+    return float((later * keep.reshape(-1, k)).sum())
+
+
+def nms_bound_ms(keep, valid):
+    """Least time for the sweep on these inputs: the valid flag (1 B) read
+    and the keep flag (1 B) written once per box, the valid boxes (24 B)
+    read once, and the IoU tests this data needs (``later_valid_pairs``)."""
+    byte_s = (keep.numel() * 2 + int(valid.sum()) * 24) / PEAK_BYTES_PER_S
+    ops_s = later_valid_pairs(keep, valid) * NMS_OPS_PER_PAIR / PEAK_F32_OPS_PER_S
     return max(byte_s, ops_s) * 1e3, "bytes" if byte_s > ops_s else "operations"
 
 
@@ -409,6 +445,8 @@ def phase_slice_rcnn():
             raise AssertionError(f"kernel vs plain NMS detections differ in {f}")
     same_as_predict = all(torch.equal(getattr(det_k, f)[0], getattr(det, f))
                           for f in det._fields)
+    if not same_as_predict:
+        raise AssertionError("the re-run post-processing differs from predict_scene's")
     nms_in = captured[0]
     del feats, logits, deltas
 
@@ -508,13 +546,12 @@ def obb_iou_matrix(boxes):
     return torch.stack([pairwise_iou_3d(b, b) for b in boxes])
 
 
-def sweep_bound_ms(keep):
-    """Least time for the IoU sweep on these inputs: the later columns of
-    every kept row read once (4 B each) and the valid and keep flags (1 B
-    each per box), or one comparison per such entry, the larger."""
-    k = keep.shape[-1]
-    kept_idx = keep.reshape(-1, k).nonzero()[:, 1].double()
-    entries = float((k - 1 - kept_idx).sum())
+def sweep_bound_ms(keep, valid):
+    """Least time for the IoU sweep on these inputs: the entries of every
+    kept row at the later valid columns read once (4 B each) and the valid
+    and keep flags (1 B each per box), or one comparison per such entry,
+    the larger."""
+    entries = later_valid_pairs(keep, valid)
     byte_s = (entries * 4 + keep.numel() * 2) / PEAK_BYTES_PER_S
     ops_s = entries / PEAK_F32_OPS_PER_S
     return max(byte_s, ops_s) * 1e3, "bytes" if byte_s > ops_s else "operations"
@@ -575,7 +612,7 @@ def phase_kernel_nms_iou():
     timing = {"k4000": nms_times({}, lambda: nms_sweep(iou, v, 0.7), reps=20, dev_reps=20)}
     timing["k4000"]["plain_ms"] = cuda_ms(lambda: nms_sweep_plain(iou, v, 0.7), reps=3,
                                           warmup=1)
-    timing["k4000"]["bound_ms"] = sweep_bound_ms(keep)[0]
+    timing["k4000"]["bound_ms"] = sweep_bound_ms(keep, v)[0]
     emit({"phase": "kernel_nms_iou", "cases": results, "limit": limit, "timing": timing})
     return timing
 
@@ -625,12 +662,15 @@ def phase_slice_rpn():
         if not torch.equal(getattr(props_k, f), getattr(props_p, f)):
             raise AssertionError(f"kernel vs plain NMS proposals differ in {f}")
     v = props_k.valid[0]
-    same_as_predict = (torch.equal(props_k.boxes[0][v], boxes)
-                       and torch.equal(props_k.level_ids[0][v], lvls))
+    if not (torch.equal(props_k.boxes[0][v], boxes)
+            and torch.equal(props_k.level_ids[0][v], lvls)):
+        raise AssertionError("the re-run filter differs from predict_scene's proposals")
+    # the rotated IoU of the valid ones of the 4 x pre_nms_top_n candidates
     iou, svalid = captured[0]
-    k = int(iou.shape[0])
-    if k != 4 * cfg.pre_nms_top_n:
-        raise AssertionError(f"NMS input has K = {k}, expected {4 * cfg.pre_nms_top_n}")
+    k, swept = 4 * cfg.pre_nms_top_n, int(iou.shape[0])
+    if not (1 <= swept <= k and bool(svalid.all())):
+        raise AssertionError(f"NMS input {tuple(iou.shape)} with {int(svalid.sum())} valid; "
+                             f"expected the valid ones of K = {k}")
     del feats, obj, reg, props_k, props_p
 
     bench = trainer.benchmark(reps=10, shape=shape)
@@ -638,10 +678,11 @@ def phase_slice_rpn():
     emit({"phase": "slice_rpn", "grid": list(shape), "padded": [pad_to_32(d) for d in shape],
           "backbone": "vgg_EF", "anchors_per_location": 13, "rotated_bbox": True,
           "pre_nms_top_n": cfg.pre_nms_top_n, "post_nms_top_n": cfg.post_nms_top_n,
-          "nms_thresh": cfg.nms_thresh, "nms_candidates": k, "dtype": "bfloat16",
+          "nms_thresh": cfg.nms_thresh, "nms_candidates": k, "nms_swept": swept,
+          "dtype": "bfloat16",
           "launches": launches, "first_call_s": round(first_s, 3),
           "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
-          "plain_nms_identical": True, "same_as_predict_scene": same_as_predict,
+          "plain_nms_identical": True, "same_as_predict_scene": True,
           "predict_scene": bench, "profile": prof})
     del trainer, grid
     torch.cuda.empty_cache()
@@ -712,6 +753,338 @@ def phase_small_reference_rpn():
     emit(report)
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+# FCOS: 160^3 grid, 4 levels (40^3, 20^3, 10^3, 5^3) at the trainer's
+# defaults; each level takes min(2500, R) of the whole location vector R
+FCOS_GRID = (160, 160, 160)
+# small_reference_fcos: the seeded cls and centerness kernels times these
+# put the 64^3 grid's proposal scores 1e-5 apart or more (the CPU run reads
+# 1.13e-5 for AABBs at 5 and 3.2e-5 for OBBs at 7)
+FCOS_REF_SCALE = {"aabb": 5.0, "rotated": 7.0}
+
+
+def fcos_mode(rotated, grid):
+    """One box mode of the FCOS slice: the main path with its launches
+    counted, the post-processing re-run with the plain sweep (outputs must
+    be equal), then the scene's NMS input, ``benchmark`` and ``profile``."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import (
+        nms_boxes,
+        nms_boxes_plain,
+        nms_sweep,
+        nms_sweep_plain,
+    )
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+
+    cfg = FCOSConfig(rotated_bbox=rotated, dtype="bfloat16", seed=0)
+    trainer = FCOSTrainer(cfg, device="cuda")
+    trainer.init_state()
+    mode = "obb" if rotated else "aabb"
+    kernel, plain = (nms_sweep, nms_sweep_plain) if rotated else (nms_boxes, nms_boxes_plain)
+
+    # the main path: counts zeroed just before, read just after
+    zero_launches()
+    t0 = time.perf_counter()
+    boxes, scores, lvls = trainer.predict_scene(grid)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"nms_boxes": 0 if rotated else 1, "nms_sweep": 1 if rotated else 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"FCOS {mode}: one NMS call must launch {want}: {launches}")
+    n = int(boxes.shape[0])
+    if boxes.dim() != 2 or boxes.shape[1] != (7 if rotated else 6) or not (
+            1 <= n <= cfg.fpn_post_nms_top_n):
+        raise AssertionError(f"FCOS {mode}: proposals {tuple(boxes.shape)}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores.float()).all()):
+        raise AssertionError(f"FCOS {mode}: non-finite proposals")
+
+    # the same head outputs post-processed with the kernel and with the
+    # plain sweep must give equal proposals
+    info, logits, reg, ctr, feats, sizes, pm = trainer.head_outputs(grid)
+    captured = []
+
+    def plain_sweep(x, svalid, thr):  # records the scene's NMS input
+        captured.append((x, svalid))
+        return plain(x, svalid, thr)
+
+    props_k = trainer.postprocess(info, logits, reg, ctr, sizes, pm)
+    props_p = trainer.postprocess(info, logits, reg, ctr, sizes, pm, nms_sweep=plain_sweep)
+    for f in props_k._fields:
+        if not torch.equal(getattr(props_k, f), getattr(props_p, f)):
+            raise AssertionError(f"FCOS {mode}: kernel vs plain NMS proposals differ in {f}")
+    v = props_k.valid[0]
+    same_as_predict = all(torch.equal(a, b) for a, b in (
+        (props_k.boxes[0][v], boxes), (props_k.scores[0][v], scores),
+        (props_k.level_ids[0][v], lvls)))
+    if not same_as_predict:
+        raise AssertionError(f"FCOS {mode}: the re-run post-processing differs from "
+                             "predict_scene's proposals")
+    x, svalid = captured[0]
+    r = int(logits.shape[1])
+    k = len(cfg.fpn_strides) * min(cfg.pre_nms_top_n, r)  # candidates into the NMS
+    n_valid = sum(min(cfg.pre_nms_top_n, int(f.shape[1] * f.shape[2] * f.shape[3]))
+                  for f in feats)  # every real location scores > 0 (no padding at 160^3)
+    swept = int(x.shape[0])
+    if rotated:  # the IoU of the valid candidates alone, all valid
+        ok = swept == n_valid and bool(svalid.all())
+    else:  # B1 takes all K sorted boxes and their valid flags
+        ok = swept == k and int(svalid.sum()) == n_valid
+    if not ok:
+        raise AssertionError(f"FCOS {mode}: NMS input {tuple(x.shape)} with "
+                             f"{int(svalid.sum())} valid; expected K = {k}, {n_valid} valid")
+    del feats, logits, reg, ctr, props_k, props_p
+
+    # the kernel on the scene's own NMS input, beside its plain sweep
+    keep = kernel(x, svalid, cfg.nms_thresh)
+    if not torch.equal(keep, plain(x, svalid, cfg.nms_thresh)):
+        raise AssertionError(f"FCOS {mode}: kernel disagrees on the scene's NMS input")
+    timing = nms_times({}, lambda: kernel(x, svalid, cfg.nms_thresh), reps=20, dev_reps=20)
+    timing["plain_ms"] = cuda_ms(lambda: plain(x, svalid, cfg.nms_thresh), reps=1, warmup=0)
+    bound = (sweep_bound_ms if rotated else nms_bound_ms)(keep, svalid)
+    timing["bound_ms"], timing["bound_by"] = bound
+    nms = {"k": k, "valid": n_valid, "swept": swept, "kept": int(keep.sum()),
+           "launches": launches["nms_sweep" if rotated else "nms_boxes"], **timing}
+    del x, svalid, keep
+
+    bench = trainer.benchmark(reps=10, shape=FCOS_GRID)
+    prof = trainer.profile(reps=5, shape=FCOS_GRID)
+    report = {"box_mode": mode, "launches": launches, "first_call_s": round(first_s, 3),
+              "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
+              "plain_nms_identical": True, "same_as_predict_scene": same_as_predict,
+              "nms": nms, "predict_scene": bench, "profile": prof}
+    del trainer
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_slice_fcos():
+    """FCOS proposal inference through ``FCOSTrainer.predict_scene`` at the
+    JAX trainer's defaults (VGG-EF, 4 tower convs of 256 channels with
+    GroupNorm(32), strides 4..32, 2500 candidates a level and 2500 after
+    the NMS at 0.3, bf16, seeded random weights) on a 160^3 grid: AABB
+    through B1, then rotated through the rotated IoU and B2."""
+    import torch
+
+    grid = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (*FCOS_GRID, 4)).astype(np.float32)).to("cuda")
+    modes = {"aabb": fcos_mode(False, grid), "obb": fcos_mode(True, grid)}
+    emit({"phase": "slice_fcos", "grid": list(FCOS_GRID), "backbone": "vgg_EF",
+          "num_convs": 4, "pre_nms_top_n": 2500, "fpn_post_nms_top_n": 2500,
+          "nms_thresh": 0.3, "dtype": "bfloat16", **modes})
+    return modes
+
+
+def phase_small_reference_fcos():
+    """f32 on the card (TF32 off) against the port's CPU reference on a
+    64^3 grid with the same seeded weights, AABB and rotated. 128
+    candidates a level before the NMS and 100 after keep the CPU's rotated
+    IoU small. The seeded head draws its cls and centerness kernels from
+    normal(0.01), whose scores sit an ulp or two apart; both runs scale
+    those kernels by ``FCOS_REF_SCALE``, which puts the proposals' scores
+    1e-5 apart or more, ten times the two devices' rounding (checked)."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_sweep_plain
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+
+    grid = np.random.default_rng(4).uniform(0, 1, (64, 64, 64, 4)).astype(np.float32)
+    report = {"phase": "small_reference_fcos", "grid": [64, 64, 64], "dtype": "float32",
+              "tolerance": {"raw_outputs_rel": 1e-4, "boxes_abs": 1e-3,
+                            "discrete": "identical", "min_score_gap": 1e-5,
+                            "iou_margin_to_0.3": 1e-5}}
+    failed = []
+    for rotated in (False, True):
+        mode = "rotated" if rotated else "aabb"
+        cfg = FCOSConfig(rotated_bbox=rotated, dtype="float32", seed=3, pre_nms_top_n=128,
+                         fpn_post_nms_top_n=100)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            tr = FCOSTrainer(cfg, device=device)
+            tr.init_state()
+            with torch.no_grad():
+                tr.model.head.cls_logits.weight.mul_(FCOS_REF_SCALE[mode])
+                tr.model.head.centerness.weight.mul_(FCOS_REF_SCALE[mode])
+            info, logits, reg, ctr, _, sizes, pm = tr.head_outputs(grid)
+            captured = []
+
+            def sweep(iou, svalid, thr, _cap=captured):  # records the NMS input
+                _cap.append((iou, svalid))
+                return nms_sweep_plain(iou, svalid, thr)
+
+            props = tr.postprocess(info, logits, reg, ctr, sizes, pm,
+                                   nms_sweep=sweep if rotated and device == "cpu" else None)
+            outs[device] = ([t.cpu() for t in (logits, reg, ctr)], [p.cpu() for p in props],
+                            captured)
+        (rc, pc, _), (rp, pp, cap) = outs["cuda"], outs["cpu"]
+        raw_err = max(float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                      for a, b in zip(rc, rp))
+        same = {f: bool(torch.equal(a, b)) for f, a, b in
+                zip(("valid", "level_ids"), (pc[3], pc[2]), (pp[3], pp[2]))}
+        box_err = float((pc[0] - pp[0]).abs().max())
+        sc = torch.sort(pp[1][0][pp[3][0]].float()).values
+        score_gap = float((sc[1:] - sc[:-1]).min()) if sc.numel() > 1 else 1.0
+        report[mode] = {"max_rel_err_raw_outputs": raw_err, "discrete_identical": same,
+                        "max_abs_box_err": box_err, "proposals": int(pp[3].sum()),
+                        "min_score_gap": score_gap}
+        if rotated:
+            iou, svalid = cap[0]
+            pairs = torch.triu(svalid[:, None] & svalid[None, :], diagonal=1)
+            iou_margin = float((iou[pairs] - cfg.nms_thresh).abs().min())
+            report[mode]["iou_margin_to_0.3"] = iou_margin
+            if iou_margin < 1e-5:
+                failed.append(f"{mode}: an OBB IoU lies within 1e-5 of 0.3")
+        if score_gap < 1e-5:
+            failed.append(f"{mode}: two scores lie within 1e-5 of each other")
+        if raw_err > 1e-4:
+            failed.append(f"{mode}: raw outputs differ by {raw_err} > 1e-4 relative")
+        if not all(same.values()) or box_err > 1e-3:
+            failed.append(f"{mode}: f32 card proposals disagree with the CPU reference")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+# the keys each trainer's eval writes (the JAX trainers' own)
+PROPOSAL_METRICS = sorted([f"recall_{t}_top{n}" for t in (25, 50) for n in (300, 1000, "all")]
+                          + ["recall_25", "recall_50", "ar", "ap_25", "ap_50"])
+RCNN_METRICS = sorted([f"{k}_{t}" for k in ("box_mAP", "box_AR", "mask_mAP", "mask_AR")
+                       for t in (25, 50)] + ["box_AP_25_per_class"])
+
+
+def run_cli(main, argv, out_dir, keys):
+    """One CLI eval run on the card (its printout kept out of this
+    script's), then its ``eval.json``: every key the JAX trainer writes,
+    every value finite. Returns the metrics and the seconds it took."""
+    import contextlib
+    import io
+    import os
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(argv + ["--save_path", out_dir])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "eval.json")) as f:
+        metrics = json.load(f)
+    values = [x for k, v in metrics.items() for x in (v if isinstance(v, list) else [v])
+              if x is not None]
+    if sorted(metrics) != keys or not all(np.isfinite(x) for x in values):
+        raise AssertionError(f"{main.__module__}: eval.json {metrics}")
+    return metrics, seconds
+
+
+def npz_layout(root, sub):
+    """{file: {key: shape}} of the ``.npz`` files under ``root/sub``."""
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(os.path.join(root, sub))):
+        with np.load(os.path.join(root, sub, name)) as z:
+            out[name] = {k: list(z[k].shape) for k in z.files}
+    return out
+
+
+def files_summary(layout):
+    """Per directory: the number of files and the first one's arrays."""
+    return {sub: {"files": len(f), "first": next(iter(f.values()), None)}
+            for sub, f in layout.items()}
+
+
+def phase_eval():
+    """The eval modes through the CLIs on the card, chained as a user runs
+    them, with seeded random weights: a dataset of 4 scenes at 64x64x48
+    written by the port's ``write_dataset`` (boxes, and a rotated one),
+    ``run_fcos --mode eval`` in both box modes, ``run_rpn --mode eval``
+    exporting the proposals, level features and voxel scores, then
+    ``run_rcnn --mode eval`` over those proposals as the dataset's
+    ``rois/``. The metrics must have the JAX trainers' keys and finite
+    values; the files written must have the JAX package's layout."""
+    import os
+    import tempfile
+
+    from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
+    from instance_nerf_tpu_torch.data.synthetic import write_dataset
+
+    report = {"phase": "eval", "scenes": 4, "grid": [64, 64, 48]}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {}
+        for kind, rotated in (("aabb", False), ("obb", True)):
+            root = os.path.join(tmp, kind)
+            scenes = write_dataset(root, num_scenes=4, grid_size=(64, 64, 48), seed=0,
+                                   style="room" if rotated else "boxes", rotated=rotated)
+            # every scene in every split: the CLIs evaluate the test (FCOS,
+            # RPN) or the val split (RCNN), and the RCNN needs the RPN's rois
+            with open(os.path.join(root, "all.json"), "w") as f:
+                json.dump({m: scenes for m in ("train", "val", "test")}, f)
+            data[kind] = root
+
+        def check(name, layout, keys, shape_of=None, shape=None):
+            for f, arrays in layout.items():
+                if sorted(arrays) != keys or (shape_of and arrays[shape_of] != shape):
+                    bad.append(f"{name}/{f}: {arrays}")
+
+        for kind, root in data.items():
+            out = os.path.join(tmp, f"fcos_{kind}")
+            argv = ["--mode", "eval", "--features_path", os.path.join(root, "features"),
+                    "--boxes_path", os.path.join(root, "boxes_obb" if kind == "obb"
+                                                 else "metadata"),
+                    "--dataset_split", os.path.join(root, "all.json"),
+                    "--save_results", "--output_voxel_scores"]
+            metrics, secs = run_cli(run_fcos.main, argv + (["--rotated_bbox"] if kind == "obb"
+                                                           else []), out, PROPOSAL_METRICS)
+            layout = {sub: npz_layout(out, sub) for sub in ("proposals", "voxel_scores")}
+            check(f"fcos_{kind}/proposals", layout["proposals"],
+                  ["level_indices", "proposals", "scores"])
+            if any(a["proposals"][1:] != [7 if kind == "obb" else 6]
+                   for a in layout["proposals"].values()):
+                bad.append(f"fcos_{kind}: proposal boxes of another width")
+            # per level, cropped to the grid: ceil(64 / 4), ceil(48 / 4)
+            check(f"fcos_{kind}/voxel_scores", layout["voxel_scores"], ["0", "1", "2", "3"],
+                  "0", [16, 16, 12])
+            report[f"fcos_{kind}"] = {"metrics": metrics, "seconds": secs,
+                                      "files": files_summary(layout)}
+        root = data["aabb"]
+        export = os.path.join(tmp, "rpn")
+        metrics, secs = run_cli(run_rpn.main, [
+            "--mode", "eval", "--features_path", os.path.join(root, "features"),
+            "--boxes_path", os.path.join(root, "metadata"),
+            "--dataset_split", os.path.join(root, "all.json"),
+            "--save_results", "--output_voxel_scores"], export, PROPOSAL_METRICS)
+        layout = {sub: npz_layout(export, sub)
+                  for sub in ("rois", "level_features", "voxel_scores")}
+        check("rpn/rois", layout["rois"], ["level_indices", "proposals", "scores"])
+        # the FPN levels of the grid padded to 64^3
+        check("rpn/level_features", layout["level_features"],
+              ["level_0", "level_1", "level_2", "level_3", "resolution"], "level_0",
+              [16, 16, 16, 256])
+        check("rpn/voxel_scores", layout["voxel_scores"], ["0", "1", "2", "3"], "0",
+              [16, 16, 12])
+        report["rpn"] = {"metrics": metrics, "seconds": secs, "files": files_summary(layout)}
+        # the RCNN reads the RPN's export as the dataset's rois/
+        chained = os.path.join(tmp, "chained")
+        os.makedirs(chained)
+        for sub in ("features", "masks", "metadata"):
+            os.symlink(os.path.join(root, sub), os.path.join(chained, sub))
+        os.symlink(os.path.join(export, "rois"), os.path.join(chained, "rois"))
+        out = os.path.join(tmp, "rcnn")
+        metrics, secs = run_cli(run_rcnn.main, [
+            "--mode", "eval", "--dataset_root", chained,
+            "--dataset_split", os.path.join(root, "all.json")], out, RCNN_METRICS)
+        layout = npz_layout(out, "masks")
+        check("rcnn/masks", layout, ["boxes", "labels", "masks", "scores"])
+        if any(a["masks"][1:] != [64, 64, 48] for a in layout.values()):
+            bad.append("rcnn: masks not of the full grid")
+        if len(layout) != 4:
+            bad.append(f"rcnn: masks of {len(layout)} scenes, not 4")
+        report["rcnn"] = {"metrics": metrics, "seconds": secs,
+                          "files": files_summary({"masks": layout})}
+    report["layout_errors"] = bad
+    emit(report)
+    if bad:
+        raise AssertionError(f"eval files differ from the JAX layout: {bad}")
 
 
 def psnr(img, ref) -> float:
@@ -1075,6 +1448,25 @@ def phase_kernel_scatter(main_step, fast_step):
         timed[name] = check_scatter(name, li, lu, rows, 1, trailing, mag_rtol=1e-5,
                                     timed=True)
         timed[name]["distinct_rows"] = int(torch.unique(li).numel())
+    # B4's forward is the library's row gather itself (``index_select``), at
+    # the main step's shapes: the table's rows read at the step's indices
+    table = torch.randn((n_levels * rows, upd.shape[1]), device=dev)
+    gidx = idx.clamp(0, n_levels * rows - 1)
+
+    def gather():
+        return table.index_select(0, gidx)
+
+    fwd = {"n": int(gidx.shape[0]), "w": int(upd.shape[1]), "rows": n_levels * rows,
+           "ms": cuda_ms(gather, reps=50)}
+    # the gather is one kernel a call, whatever its name: each device
+    # activity counts as a call
+    profiled(fwd, "device_ms", gather, 20, "", "")
+    # the indices (4 B) read and the rows written once, the table read once
+    n_g, w_g = gidx.shape[0], upd.shape[1]
+    byte_s = (n_g * (4 + w_g * 4) + min(n_g, n_levels * rows) * w_g * 4) / PEAK_BYTES_PER_S
+    fwd["bound_ms"], fwd["bound_by"] = byte_s * 1e3, "bytes"
+    timed["b4_forward_index_select"] = fwd
+    del table, gidx
     idx, upd, n_levels, trailing, rows = fast_step
     timed["fast_all_levels"] = check_scatter("fast_all_levels", idx, upd, rows, n_levels,
                                              trailing, mag_rtol=1e-5, timed=True)
@@ -1208,6 +1600,19 @@ def phase_small_reference_field():
         raise AssertionError(f"f32 card field disagrees with the CPU run: {report}")
 
 
+def fcos_entry(nms) -> dict:
+    """The FCOS path's figures of one NMS kernel for its ``kernels`` entry:
+    launches per ``predict_scene``, K into the NMS, the valid boxes, the
+    rows swept (B2 sweeps the valid ones), the kept ones, the kernel's times
+    on the scene's own input, its plain version's and its bound."""
+    return {"launches_fcos": nms["launches"], "k_fcos": nms["k"], "valid_fcos": nms["valid"],
+            "swept_fcos": nms["swept"], "kept_fcos": nms["kept"], "fcos_ms": nms["kernel_ms"],
+            "fcos_device_ms": nms["device_ms"], "fcos_mask_device_ms": nms["mask_device_ms"],
+            "fcos_scan_device_ms": nms["scan_device_ms"],
+            "fcos_call_device_ms": nms["call_device_ms"], "fcos_plain_ms": nms["plain_ms"],
+            "fcos_bound_ms": nms["bound_ms"], "fcos_bound_by": nms["bound_by"]}
+
+
 def main():
     import torch
 
@@ -1235,7 +1640,7 @@ def main():
     if err:
         raise AssertionError("kernel disagrees on the scene's own NMS input")
     k_t = nms_times({}, lambda: nms_boxes(sboxes, svalid, 0.15), reps=200, dev_reps=50)
-    bound_ms, bound_by = nms_bound_ms(keep_k)
+    bound_ms, bound_by = nms_bound_ms(keep_k, svalid)
     p_ms = cuda_ms(lambda: nms_boxes_plain(sboxes, svalid, 0.15), reps=5, warmup=1)
     phase_small_reference()
 
@@ -1246,10 +1651,14 @@ def main():
     if err_iou:
         raise AssertionError("nms_sweep kernel disagrees on the scene's own NMS input")
     ki_t = nms_times({}, lambda: nms_sweep(iou, ivalid, 0.7), reps=20, dev_reps=20)
-    bound_iou_ms, bound_iou_by = sweep_bound_ms(keep_k)
+    bound_iou_ms, bound_iou_by = sweep_bound_ms(keep_k, ivalid)
     pi_ms = cuda_ms(lambda: nms_sweep_plain(iou, ivalid, 0.7), reps=3, warmup=1)
     kept = int(keep_k.sum())
     phase_small_reference_rpn()
+
+    fcos = phase_slice_fcos()
+    phase_small_reference_fcos()
+    phase_eval()
 
     launches_field, main_step = phase_slice_field()
     launches_fast, fast_step, b5_inputs = phase_slice_field_fast()
@@ -1271,6 +1680,7 @@ def main():
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
+        **fcos_entry(fcos["aabb"]["nms"]),
     }, {
         "name": "nms_sweep", "route": "cuda",
         "source": "instance_nerf_tpu_torch/csrc/nms_sweep_iou.cu",
@@ -1282,6 +1692,7 @@ def main():
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
         "random_k4000": timing_iou["k4000"],
+        **fcos_entry(fcos["obb"]["nms"]),
     }, {
         "name": "scatter_add", "route": "cuda",
         "source": "instance_nerf_tpu_torch/csrc/scatter_add.cu",

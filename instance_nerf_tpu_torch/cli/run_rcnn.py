@@ -1,13 +1,14 @@
 """NeRF-RCNN CLI on PyTorch (same argparse surface as
 ``instance_nerf_tpu.cli.run_rcnn``, plus ``--device``).
 
-Modes in the port so far: ``check_arch``, ``benchmark`` and ``profile``
-(a ``torch.profiler`` split of ``predict_scene`` by stage and kernel).
-``eval`` needs the dataset and metrics modules (first in slice 4's
-queue) and ``train`` comes with slice 5; both raise
-``NotImplementedError``.
+Modes: ``eval`` (box and mask mAP / AR over a ``SegmentationDataset``;
+with ``--save_path`` the masks of each scene and ``eval.json``),
+``check_arch``, ``benchmark`` and ``profile`` (a ``torch.profiler`` split
+of ``predict_scene`` by stage and kernel). ``train`` comes with slice 5 and
+raises ``NotImplementedError``.
 
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode check_arch
+    python -m instance_nerf_tpu_torch.cli.run_rcnn --mode eval --dataset_root D --save_path OUT
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode benchmark --resolution 200
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode profile --resolution 200 --grid 200 200 132
 """
@@ -15,8 +16,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
-import sys
+import os
+
+from instance_nerf_tpu_torch.cli.common import report_eval, setup_logging
 
 
 def build_parser():
@@ -86,19 +88,21 @@ def config_from_args(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-                        handlers=[logging.StreamHandler(sys.stdout)])
+    setup_logging(args)
     if args.mode == "train":
         raise NotImplementedError("--mode train comes with slice 5 (detector training)")
-    if args.mode == "eval":
-        raise NotImplementedError(
-            "--mode eval needs the dataset and metrics modules, first in slice 4")
 
+    from instance_nerf_tpu_torch.data.datasets import SegmentationDataset
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
 
     trainer = RCNNTrainer(config_from_args(args), device=args.device)
     trainer.init_state()
+    if args.mode == "eval":
+        ds = SegmentationDataset("val", args.dataset_root, args.dataset_split or None)
+        metrics = trainer.eval(
+            ds, save_masks_path=os.path.join(args.save_path, "masks") if args.save_path else None)
+        report_eval(metrics, args.save_path)
+        return
     shape = tuple(args.grid or (args.resolution,) * 2 + (args.resolution * 13 // 16,))
     if args.mode == "benchmark":
         print(json.dumps(trainer.benchmark(reps=20, shape=shape)))

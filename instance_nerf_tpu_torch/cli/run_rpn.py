@@ -2,21 +2,23 @@
 ``instance_nerf_tpu.cli.run_rpn``, plus ``--device``, ``--dtype`` and
 ``--grid``).
 
-Modes in the port so far: ``check_arch``, ``benchmark`` and ``profile``
-(``predict_scene`` split by stage and kernel). ``eval`` (the proposal and
-feature export) comes with slice 4 and ``train`` with slice 5; both raise
-``NotImplementedError``.
+Modes: ``eval`` (recall / AP over a dataset; with ``--save_results`` the
+per-scene proposals and FPN level features that build the RCNN's
+``rois/``), ``check_arch``, ``benchmark`` and ``profile`` (``predict_scene``
+split by stage and kernel). ``train`` comes with slice 5 and raises
+``NotImplementedError``; its flags come with it.
 
     python -m instance_nerf_tpu_torch.cli.run_rpn --mode check_arch --device cpu --rotated_bbox
-    python -m instance_nerf_tpu_torch.cli.run_rpn --mode benchmark --rotated_bbox --resolution 200
+    python -m instance_nerf_tpu_torch.cli.run_rpn --mode eval --features_path D/features \
+        --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT --save_results
     python -m instance_nerf_tpu_torch.cli.run_rpn --mode profile --rotated_bbox --resolution 200
 """
 from __future__ import annotations
 
 import argparse
 import json
-import logging
-import sys
+
+from instance_nerf_tpu_torch.cli.common import report_eval, setup_logging
 
 
 def build_parser():
@@ -32,15 +34,23 @@ def build_parser():
     p.add_argument("--checkpoint", default="", help="flax params tree as .npz")
     p.add_argument("--backbone_type", default="vgg_EF")
     p.add_argument("--resolution", type=int, default=160)
+    p.add_argument("--normalize_density", action="store_true", default=True)
     p.add_argument("--rotated_bbox", action="store_true")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--grid", type=int, nargs=3, default=None, metavar=("W", "L", "H"),
                    help="benchmark/profile grid (default R R 13R/20)")
+    p.add_argument("--log_to_file", action="store_true")
     p.add_argument("--rpn_head_conv_depth", type=int, default=4)
     p.add_argument("--rpn_pre_nms_top_n", type=int, default=1000)
     p.add_argument("--rpn_post_nms_top_n", type=int, default=1000)
     p.add_argument("--rpn_nms_thresh", type=float, default=0.7)
     p.add_argument("--rpn_score_thresh", type=float, default=0.0)
+    # eval export
+    p.add_argument("--save_results", action="store_true")
+    p.add_argument("--output_proposals", action="store_true")
+    p.add_argument("--filter", choices=["none", "tp", "fp"], default="none")
+    p.add_argument("--filter_threshold", type=float, default=0.7)
+    p.add_argument("--output_voxel_scores", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -49,7 +59,12 @@ def config_from_args(args):
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig
 
     return RPNConfig(
+        features_path=args.features_path,
+        boxes_path=args.boxes_path,
+        dataset_split=args.dataset_split,
+        save_path=args.save_path,
         checkpoint=args.checkpoint,
+        normalize_density=args.normalize_density,
         backbone_type=args.backbone_type,
         resolution=args.resolution,
         rotated_bbox=args.rotated_bbox,
@@ -65,20 +80,23 @@ def config_from_args(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-                        handlers=[logging.StreamHandler(sys.stdout)])
+    setup_logging(args)
     if args.mode == "train":
         raise NotImplementedError("--mode train comes with slice 5 (detector training)")
-    if args.mode == "eval":
-        raise NotImplementedError(
-            "--mode eval (proposal and feature export) needs the dataset and "
-            "metrics modules, which come with slice 4")
 
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNTrainer
 
     trainer = RPNTrainer(config_from_args(args), device=args.device)
     trainer.init_state()
+    if args.mode == "eval":
+        ds = trainer.make_dataset("test" if args.dataset_split else "val")
+        metrics = trainer.eval(
+            ds, save_results_path=args.save_path if args.save_results else None,
+            output_proposals=args.output_proposals, filter_mode=args.filter,
+            filter_threshold=args.filter_threshold,
+            output_voxel_scores=args.output_voxel_scores)
+        report_eval(metrics, args.save_path)
+        return
     shape = tuple(args.grid or (args.resolution,) * 2 + (args.resolution * 13 // 20,))
     if args.mode == "benchmark":
         print(json.dumps(trainer.benchmark(reps=20, shape=shape)))

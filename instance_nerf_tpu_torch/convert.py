@@ -1,6 +1,6 @@
 """flax params tree (numpy leaves) -> a state dict of the port's
-``NeRF_RCNN``, ``NeRFRegionProposalNetwork``, ``InstanceNGP`` or
-``InstanceNGPFast``.
+``NeRF_RCNN``, ``NeRFRegionProposalNetwork``, ``FCOSOverNeRF``,
+``InstanceNGP`` or ``InstanceNGPFast``.
 
 Mappings:
 
@@ -14,7 +14,7 @@ Mappings:
   False``) with k2 s2 SAME computes ``y[2i + a] = x[i] k[1 - a]`` where
   ``torch.nn.functional.conv_transpose3d`` computes ``x[i] w[a]``;
 * the field's tables (``hash_table``, ``brick_table``, ``dense_grid``)
-  carry over as they are;
+  and FCOS's per-level ``head/scales`` carry over as they are;
 * module names: ``FPN_0`` -> ``fpn``, ``Conv_0`` -> ``conv``,
   ``GroupNorm_0`` -> ``norm``; every other name is kept.
 """
@@ -85,6 +85,19 @@ def rpn_params_from_jax(params) -> dict[str, torch.Tensor]:
     ``rpn_head/conv_i``, ``cls_logits`` and ``bbox_pred`` as plain 5-D
     convs (the same leaf mapping)."""
     return rcnn_params_from_jax(params)
+
+
+def fcos_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """Convert a flax ``FCOSOverNeRF`` params tree to a ``state_dict``: the
+    backbone and the head's towers, GroupNorms and output convs as for
+    ``NeRF_RCNN``, and ``head/scales`` (one f32 a level) as ``head.scales``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    head = dict(params["head"])
+    scales = torch.tensor(np.asarray(head.pop("scales"), np.float32))
+    out = rcnn_params_from_jax({**params, "head": head})
+    out["head.scales"] = scales
+    return out
 
 
 FIELD_TABLES = ("hash_table", "brick_table", "dense_grid")

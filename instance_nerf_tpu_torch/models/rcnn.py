@@ -117,7 +117,7 @@ def postprocess_detections(
     """Fixed-shape detections per scene; invalid slots carry score and
     label 0. ``nms_sweep`` replaces the NMS sweep (see ``ops.nms.nms_mask``)."""
     if box_dim != 6:
-        raise NotImplementedError("OBB detections come with slice 4 (eval and FCOS)")
+        raise NotImplementedError("OBB detections come with slice 5 (ROADMAP queue A)")
     coder = AABBCoder()
     n, p, c = class_logits.shape
     dev = class_logits.device

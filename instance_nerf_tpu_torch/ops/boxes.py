@@ -109,6 +109,13 @@ def obb2hbb(obboxes: torch.Tensor) -> torch.Tensor:
     return torch.cat([center - bias, center + bias], dim=-1)
 
 
+def obb2hbb_3d(obboxes: torch.Tensor) -> torch.Tensor:
+    """3D OBB ``(..., 7)`` -> smallest enclosing AABB ``(..., 6)``."""
+    z, d = obboxes[..., 2:3], obboxes[..., 5:6]
+    hbb = obb2hbb(obboxes[..., [0, 1, 3, 4, 6]])
+    return torch.cat([hbb[..., 0:2], z - d / 2, hbb[..., 2:4], z + d / 2], dim=-1)
+
+
 def obb2poly(obboxes: torch.Tensor) -> torch.Tensor:
     """2D OBB ``(..., 5)`` -> 4 corner points ``(..., 8)``."""
     center = obboxes[..., 0:2]

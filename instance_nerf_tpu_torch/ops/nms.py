@@ -4,11 +4,15 @@
 Sort once by score (stable, as ``jnp.argsort``), run the greedy sweep over
 the score-ordered boxes, scatter the keep mask back. AABB sweeps go through
 kernel B1 (``kernels/nms_cuda.py:nms_boxes``), which computes the IoU
-itself. OBB sweeps with ``K <= DENSE_NMS_MAX`` compute the dense rotated
-IoU matrix in row chunks (``ops/rotated_iou.py:pairwise_iou_3d``) and
-sweep it with kernel B2 (``nms_cuda.py:nms_sweep``). Each kernel runs for
-a CUDA tensor, its plain version for a CPU tensor. Keep decisions are
-identical to the JAX package's on the same inputs.
+itself. OBB sweeps compute the dense rotated IoU matrix in row chunks
+(``ops/rotated_iou.py:pairwise_iou_3d``) and sweep it with kernel B2
+(``nms_cuda.py:nms_sweep``), which takes K up to ``nms_cuda.MAX_K``. The
+matrix covers the valid boxes only (see ``nms_mask``); where the JAX
+package streams the OBB sweep in row tiles (above its ``DENSE_NMS_MAX``,
+``ops/nms.py:_sweep_xla_streamed``) the port still sweeps that dense
+matrix. Each kernel runs for a CUDA tensor, its plain version for a CPU
+tensor. Keep decisions are identical to the JAX package's on the same
+inputs.
 """
 from __future__ import annotations
 
@@ -16,13 +20,10 @@ import contextlib
 
 import torch
 
-from instance_nerf_tpu_torch.kernels.nms_cuda import nms_boxes, nms_sweep
+from instance_nerf_tpu_torch.kernels.nms_cuda import MAX_K, nms_boxes, nms_sweep
 from instance_nerf_tpu_torch.ops.rotated_iou import pairwise_iou_3d
 
 NEG_INF = -1e30
-# Above this candidate count the JAX package streams the OBB IoU matrix
-# through an XLA sweep instead of materialising it (``ops/nms.py:45-97``).
-DENSE_NMS_MAX = 4096
 
 
 def no_stage(name):
@@ -47,20 +48,32 @@ def nms_mask(
     kernel against its plain version on the card passes the latter.
     ``stage(name)`` opens a span around the OBB IoU (``obb_iou``) and the
     sweep (``nms_sweep``).
+
+    The OBB IoU matrix is built and swept over the valid boxes alone, in
+    score order. Invalid boxes are never kept and never suppress, so the
+    keep mask is that of the sweep over all boxes, and FCOS-OBB's matrix
+    shrinks from 10,000^2 to 6,125^2 entries at 160^3. It costs one
+    device-to-host read (the count of valid boxes). More valid OBBs than
+    ``nms_cuda.MAX_K`` raise ``ValueError`` before the IoU matrix is built.
     """
     n = boxes.shape[0]
     obb = boxes.shape[-1] == 7
-    if obb and n > DENSE_NMS_MAX:
-        raise NotImplementedError(
-            f"OBB NMS over K={n} > {DENSE_NMS_MAX} candidates takes the streamed "
-            "sweep, which comes with the FCOS slice (slice 4)")
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=boxes.device)
     eff_scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     order = torch.argsort(-eff_scores, stable=True)  # descending, stable
-    sboxes = boxes[order].to(torch.float32).contiguous()
-    svalid = valid[order].contiguous()
     if obb:
+        # the valid boxes in the same relative order (a valid score may tie
+        # NEG_INF, so take them by mask, not as a prefix)
+        order = order[valid[order]]
+        svalid = torch.ones((order.shape[0],), dtype=torch.bool, device=boxes.device)
+    else:
+        svalid = valid[order].contiguous()
+    sboxes = boxes[order].to(torch.float32).contiguous()
+    if obb:
+        if sboxes.shape[0] > MAX_K:  # before the K x K IoU is built
+            raise ValueError(f"OBB NMS over K={sboxes.shape[0]} boxes exceeds the "
+                             f"sweep's limit of {MAX_K}")
         with stage("obb_iou"):
             iou = pairwise_iou_3d(sboxes, sboxes)
         with stage("nms_sweep"):

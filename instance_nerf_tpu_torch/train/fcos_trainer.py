@@ -1,0 +1,274 @@
+"""FCOS NeRF-RPN proposal inference and eval (PyTorch counterpart of
+``instance_nerf_tpu.train.fcos_trainer``; the training methods come with
+slice 5).
+
+``FCOSTrainer`` runs on ``device="cuda"`` unless the caller asks for the
+CPU; with no CUDA device it raises. ``predict_scene`` pads a scene's grid
+to multiples of 32, runs the backbone and the FCOS head and post-processes
+the locations of the un-padded region: in AABB mode the NMS is kernel B1,
+in OBB mode the rotated IoU of the valid candidates swept by kernel B2.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from instance_nerf_tpu_torch import resolve_device
+from instance_nerf_tpu_torch.convert import fcos_params_from_jax, unflatten_npz
+from instance_nerf_tpu_torch.data.datasets import RPNDataset
+from instance_nerf_tpu_torch.models.backbones import build_backbone
+from instance_nerf_tpu_torch.models.fcos import (
+    FCOSOverNeRF,
+    fcos_postprocess,
+    init_fcos_head,
+    padding_mask,
+    sigmoid,
+)
+from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
+from instance_nerf_tpu_torch.train.rpn_trainer import eval_proposals, padded_grid, rpn_dataset
+from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
+
+
+@dataclass
+class FCOSConfig:
+    """The JAX package's ``FCOSConfig``: the data, model and inference
+    fields are used; the training, parallel and device-store fields are
+    accepted and unused until slice 5."""
+
+    # data
+    features_path: str = ""
+    boxes_path: str = ""
+    dataset_split: str = ""
+    save_path: str = ""
+    checkpoint: str = ""  # .npz of a flax params tree ("/"-joined keys)
+    resolution: int = 160
+    normalize_density: bool = True
+    # model; compute dtype (params stay f32), bf16 on the card by default
+    backbone_type: str = "vgg_EF"
+    input_dim: int = 4
+    dtype: str = "bfloat16"
+    rotated_bbox: bool = False
+    num_convs: int = 4
+    norm_reg_targets: bool = True
+    centerness_on_reg: bool = True
+    conv_at_start: bool = False
+    # train (unused here)
+    batch_size: int = 4
+    num_epochs: int = 160
+    lr: float = 3e-4
+    reg_loss_weight: float = 1.0
+    weight_decay: float = 1e-3
+    clip_grad_norm: float = 0.1
+    log_interval: int = 20
+    eval_interval: int = 4
+    keep_checkpoints: int = 2
+    center_sampling_radius: float = 1.5
+    iou_loss_type: str = "iou"
+    use_additional_l1_loss: bool = False
+    proj2d_loss_weight: float = 0.0
+    # augmentation (train split only)
+    flip_prob: float = 0.5
+    rotate_prob: float = 0.5
+    rot_scale_prob: float = 0.0
+    # inference
+    pre_nms_top_n: int = 2500
+    fpn_post_nms_top_n: int = 2500
+    nms_thresh: float = 0.3
+    pre_nms_thresh: float = 0.0
+    min_size: float = 0.0
+    ap_top_n: int | None = None
+    # train loop, parallel, device store (unused here)
+    resume: bool = False
+    n_spatial: int = 1
+    max_gt: int = 64
+    remat: bool = False
+    steps_per_call: int = 1
+    save_interval: int = 0
+    stop_after_epochs: int = 0
+    fpn_strides: tuple = (4, 8, 16, 32)
+    seed: int = 0
+    preload: bool = False
+    device_data: bool = False
+
+
+def init_fcos_params(model: FCOSOverNeRF, seed: int) -> None:
+    """Seeded random init with flax's initializers (``init_rcnn_params`` for
+    the backbone, ``init_fcos_head`` for the head). The numbers differ from
+    JAX's (another generator)."""
+    init_rcnn_params(model.backbone, seed)
+    init_fcos_head(model.head, torch.Generator().manual_seed(seed + 1))
+
+
+class FCOSTrainer:
+    def __init__(self, cfg: FCOSConfig | None = None, device="cuda"):
+        self.cfg = cfg = cfg or FCOSConfig()
+        self.device = resolve_device(device)
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
+        if self.dtype is None and self.device.type == "cuda":
+            # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # the stride-4 stem always, as the JAX trainer builds it
+        backbone = build_backbone(cfg.backbone_type, input_size=max(cfg.resolution, 160),
+                                  in_channels=cfg.input_dim,
+                                  conv_at_start=cfg.conv_at_start, dtype=self.dtype)
+        self.model = FCOSOverNeRF(backbone, fpn_strides=cfg.fpn_strides,
+                                  num_convs=cfg.num_convs,
+                                  norm_reg_targets=cfg.norm_reg_targets,
+                                  centerness_on_reg=cfg.centerness_on_reg,
+                                  use_obb=cfg.rotated_bbox, dtype=self.dtype)
+        self.model.eval()
+        self.params_loaded = False
+        # ``predict_scene``'s stages: profiler ranges ``fcos.<name>``
+        self._stage = Stages("fcos")
+
+    # -- data ----------------------------------------------------------------
+
+    def make_dataset(self, mode: str) -> RPNDataset:
+        return rpn_dataset(self.cfg, mode, preload=self.cfg.preload)
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self):
+        """Seeded random init, or ``cfg.checkpoint`` (a flax params ``.npz``)."""
+        if self.cfg.checkpoint:
+            self.load_jax_params(self.cfg.checkpoint)
+            return
+        init_fcos_params(self.model, self.cfg.seed)
+        self.model.to(self.device)
+        self.params_loaded = True
+
+    def load_jax_params(self, npz_or_tree):
+        """Load a flax ``FCOSOverNeRF`` params tree (nested dict of arrays,
+        or an ``.npz`` whose keys are the tree paths joined by ``/``)."""
+        tree = npz_or_tree
+        if isinstance(tree, (str, os.PathLike)):
+            with np.load(tree) as z:
+                tree = unflatten_npz({k: z[k] for k in z.files})
+        self.model.load_state_dict(fcos_params_from_jax(tree), strict=True)
+        self.model.to(self.device)
+        self.params_loaded = True
+
+    def train_loop(self):
+        raise NotImplementedError("FCOS training comes with slice 5 (detector training)")
+
+    # -- inference -----------------------------------------------------------
+
+    @torch.inference_mode()
+    def head_outputs(self, grid):
+        """Backbone + FCOS head for one scene ``(W, L, H, C)``: (level info,
+        logits (1, R), regression (1, R, D) in voxels, centerness (1, R),
+        features, grid sizes (1, 3), padding mask (1, R))."""
+        if not self.params_loaded:
+            self.init_state()
+        padded, sizes = padded_grid(grid, self.device)
+        with self._stage("backbone"):
+            feats = self.model.features(padded)
+        with self._stage("head"):
+            logits, reg, ctr = self.model.head_outputs(feats)
+            info = self.model.level_info(feats)
+            pm = padding_mask(info, sizes)
+        return info, logits, reg, ctr, feats, sizes, pm
+
+    @torch.inference_mode()
+    def postprocess(self, info, logits, reg, ctr, sizes, pm, nms_sweep=None):
+        """``fcos_postprocess`` with the config's settings; ``nms_sweep``
+        replaces the NMS sweep (see ``ops.nms.nms_mask``)."""
+        cfg = self.cfg
+        return fcos_postprocess(
+            info, logits, reg, ctr, sizes, num_levels=len(cfg.fpn_strides),
+            pre_nms_thresh=cfg.pre_nms_thresh, pre_nms_top_n=cfg.pre_nms_top_n,
+            nms_thresh=cfg.nms_thresh, fpn_post_nms_top_n=cfg.fpn_post_nms_top_n,
+            min_size=cfg.min_size, pad_mask=pm, use_obb=cfg.rotated_bbox,
+            nms_sweep=nms_sweep, stage=self._stage)
+
+    @torch.inference_mode()
+    def predict_scene(self, grid):
+        """One scene ``(W, L, H, C)`` -> (boxes (P, 6|7), scores (P,), level
+        ids (P,)), the valid proposals, best first."""
+        info, logits, reg, ctr, _, sizes, pm = self.head_outputs(grid)
+        props = self.postprocess(info, logits, reg, ctr, sizes, pm)
+        v = props.valid[0]
+        return props.boxes[0][v], props.scores[0][v], props.level_ids[0][v]
+
+    @torch.inference_mode()
+    def dump_voxel_scores(self, grid, out_path: str):
+        """Per-voxel ``sqrt(clip(cls * ctr, 0, 1))`` per level (in the head's
+        dtype), cropped to the grid, into a compressed ``.npz`` of f32 arrays
+        ``{"0": (w0, l0, h0), ...}``."""
+        cfg = self.cfg
+        if not self.params_loaded:
+            self.init_state()
+        padded, _ = padded_grid(grid, self.device)
+        _, logits, _, ctr, feats = self.model(padded)
+        score = torch.sqrt(torch.clamp(sigmoid(logits) * sigmoid(ctr), 0, 1))[0]
+        out, offset = {}, 0
+        for lvl, (f, stride) in enumerate(zip(feats, cfg.fpn_strides)):
+            wl, ll, hl = f.shape[1:4]
+            n = wl * ll * hl
+            s = score[offset:offset + n].reshape(wl, ll, hl)
+            lim = [int(np.ceil(d / stride)) for d in np.shape(grid)[:3]]
+            out[str(lvl)] = to_numpy(s[:lim[0], :lim[1], :lim[2]])
+            offset += n
+        np.savez_compressed(out_path, **out)
+
+    def eval(self, dataset: RPNDataset, save_results_path: str | None = None,
+             output_voxel_scores: bool = False, filter_mode: str = "none",
+             filter_threshold: float = 0.7) -> dict:
+        """Recall (IoU 0.25 / 0.5 at the top 300, 1000 and all), AR and AP of
+        the proposals over ``dataset``; with ``save_results_path`` writes
+        ``proposals/<scene>.npz`` (TP/FP-filtered with ``filter_mode``) and,
+        with ``output_voxel_scores``, ``voxel_scores/<scene>.npz``."""
+
+        def predict(grid):
+            return tuple(to_numpy(x) for x in self.predict_scene(grid)), None
+
+        def export(scene, grid, props, _):
+            b, s, lvl = props
+            if output_voxel_scores:
+                vs_dir = os.path.join(save_results_path, "voxel_scores")
+                os.makedirs(vs_dir, exist_ok=True)
+                self.dump_voxel_scores(grid, os.path.join(vs_dir, scene + ".npz"))
+            os.makedirs(os.path.join(save_results_path, "proposals"), exist_ok=True)
+            np.savez(os.path.join(save_results_path, "proposals", scene + ".npz"),
+                     proposals=b, scores=s, level_indices=lvl)
+
+        return eval_proposals(dataset, predict, export if save_results_path else None,
+                              filter_mode, filter_threshold, ap_top_n=self.cfg.ap_top_n)
+
+    # -- misc ----------------------------------------------------------------
+
+    def check_arch(self, grid_size=64):
+        """Smoke forward on a random grid."""
+        rng = np.random.default_rng(0)
+        grid = rng.uniform(0, 1, (grid_size,) * 3 + (self.cfg.input_dim,)).astype(np.float32)
+        boxes, scores, lvls = self.predict_scene(grid)
+        return {"device": str(self.device), "proposals": int(boxes.shape[0]),
+                "box_dim": int(boxes.shape[-1]),
+                "levels": torch.bincount(lvls.long(), minlength=4).tolist()}
+
+    def benchmark(self, reps=10, shape=(160, 160, 160), warmup=2):
+        """``predict_scene`` at ``shape`` timed with CUDA events: median and
+        mean ms over ``reps`` warmed runs, and peak device memory."""
+        grid_t = self._card_grid(shape)
+        out = benchmark_ms(lambda: self.predict_scene(grid_t), self.device,
+                           reps=reps, warmup=warmup)
+        out["proposals"] = int(self.predict_scene(grid_t)[0].shape[0])
+        return out
+
+    def profile(self, reps=5, shape=(160, 160, 160), warmup=2, top=12):
+        """Where ``predict_scene``'s time goes (``train/timing.py:profile_ms``),
+        by stage: backbone, head, decode_filter, obb_iou, nms_sweep, topk."""
+        grid_t = self._card_grid(shape)
+        return profile_ms(lambda: self.predict_scene(grid_t), self.device,
+                          self._stage, reps=reps, warmup=warmup, top=top)
+
+    def _card_grid(self, shape):
+        if self.device.type != "cuda":
+            raise RuntimeError("timing the card needs device='cuda'")
+        rng = np.random.default_rng(0)
+        grid = rng.uniform(0, 1, (*shape, self.cfg.input_dim)).astype(np.float32)
+        return torch.as_tensor(grid, device=self.device)

@@ -1,9 +1,11 @@
-"""NeRF-RCNN inference (PyTorch counterpart of
+"""NeRF-RCNN inference and eval (PyTorch counterpart of
 ``instance_nerf_tpu.train.rcnn_trainer``; the training methods come with
 slice 5).
 
 ``RCNNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
+``eval`` scores the detections and masks of a ``SegmentationDataset``
+(box and mask mAP / AR at IoU 0.25 and 0.5).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import rcnn_params_from_jax, unflatten_npz
+from instance_nerf_tpu_torch.data.datasets import SegmentationDataset
+from instance_nerf_tpu_torch.eval.metrics import evaluate_map_recall
 from instance_nerf_tpu_torch.models.backbones import build_backbone
 from instance_nerf_tpu_torch.models.rcnn import (
     ConvTranspose3d,
@@ -92,7 +96,7 @@ class RCNNTrainer:
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
         if cfg.bbox_type != "aabb":
-            raise NotImplementedError("OBB RCNN comes with slice 4 (eval and FCOS)")
+            raise NotImplementedError("OBB RCNN comes with slice 5 (ROADMAP queue A)")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -178,6 +182,53 @@ class RCNNTrainer:
                                          cfg.mask_paste_threshold)
         return det0, masks
 
+    # -- eval -----------------------------------------------------------------
+
+    def eval(self, dataset: SegmentationDataset, save_masks_path=None) -> dict:
+        """Box and mask mAP / AR (IoU 0.25 and 0.5, mean over the classes
+        with ground truth) and the per-class box AP at 0.25 over
+        ``dataset``; with ``save_masks_path`` writes ``<scene>.npz`` (masks,
+        scores, labels, boxes of the valid detections)."""
+        pb, ps, pl, gb, gl = [], [], [], [], []
+        pm, gm = [], []
+        for i in range(len(dataset)):
+            d = dataset.load_scene(i)
+            det, masks = self.predict_scene(d["grid"], d["rois"])
+            v = det.valid
+            boxes, scores = to_numpy(det.boxes[v]), to_numpy(det.scores[v])
+            labels, vmasks = to_numpy(det.labels[v]), to_numpy(masks[v])
+            pb.append(boxes)
+            ps.append(scores)
+            pl.append(labels)
+            pm.append(vmasks)
+            gb.append(d["boxes"] if d["boxes"] is not None else np.zeros((0, 6)))
+            gl.append(d["class_ids"] if d["class_ids"] is not None else np.zeros(0))
+            gm.append(d["masks"] if d["masks"] is not None else
+                      np.zeros((0, *d["grid"].shape[:3])))
+            if save_masks_path:
+                os.makedirs(save_masks_path, exist_ok=True)
+                np.savez_compressed(os.path.join(save_masks_path, d["scene"] + ".npz"),
+                                    masks=vmasks, scores=scores, labels=labels, boxes=boxes)
+
+        def nmean(x):
+            x = np.asarray(x[1:], np.float64)
+            return float(np.nanmean(x)) if x.size and not np.isnan(x).all() else 0.0
+
+        out = {}
+        for thr in (0.25, 0.5):
+            ap, rec = evaluate_map_recall(pb, ps, pl, gb, gl, iou_thresh=thr)
+            out[f"box_mAP_{int(thr * 100)}"] = nmean(ap)
+            out[f"box_AR_{int(thr * 100)}"] = nmean(rec)
+            ap_m, rec_m = evaluate_map_recall(pm, ps, pl, gm, gl, iou_thresh=thr,
+                                              iou_type="mask")
+            out[f"mask_mAP_{int(thr * 100)}"] = nmean(ap_m)
+            out[f"mask_AR_{int(thr * 100)}"] = nmean(rec_m)
+            if thr == 0.25:  # per class: which classes drag the mAP
+                out["box_AP_25_per_class"] = [
+                    None if np.isnan(x) else round(float(x), 4)
+                    for x in np.asarray(ap[1:], np.float64)]
+        return out
+
     # -- misc -----------------------------------------------------------------
 
     def check_arch(self, grid_size=64):
@@ -215,6 +266,12 @@ class RCNNTrainer:
         grid = rng.uniform(0, 1, (*shape, 4)).astype(np.float32)
         rois = _random_rois(rng, min(shape), self.cfg.eval_rois)
         return torch.as_tensor(grid, device=self.device), rois
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 becomes f32 (numpy has no bf16), values unchanged."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _random_rois(rng, grid_size, n):

@@ -1,13 +1,15 @@
-"""Anchor NeRF-RPN proposal inference (PyTorch counterpart of
+"""Anchor NeRF-RPN proposal inference and eval (PyTorch counterpart of
 ``instance_nerf_tpu.train.rpn_trainer``; the training methods come with
-slice 5, the ``eval`` export with slice 4).
+slice 5).
 
 ``RPNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
 ``predict_scene`` pads a scene's grid to multiples of 32, runs the
 backbone and the RPN head, masks the anchors of the padding and filters
 the proposals: with ``rotated_bbox`` the per-level NMS computes the dense
-rotated IoU and sweeps it with kernel B2, else it runs kernel B1.
+rotated IoU and sweeps it with kernel B2, else it runs kernel B1. ``eval``
+scores the proposals of a dataset and exports them with the FPN level
+features: the files the RCNN's ``SegmentationDataset`` reads as ``rois/``.
 """
 from __future__ import annotations
 
@@ -20,21 +22,32 @@ import torch
 
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import rpn_params_from_jax, unflatten_npz
+from instance_nerf_tpu_torch.data.datasets import RPNDataset, read_split
+from instance_nerf_tpu_torch.eval.metrics import (
+    box_iou_3d_np,
+    evaluate_box_proposals_ap,
+    evaluate_box_proposals_recall,
+)
 from instance_nerf_tpu_torch.models.backbones import build_backbone
 from instance_nerf_tpu_torch.models.rpn import (
     NeRFRegionProposalNetwork,
     anchor_padding_mask,
     filter_proposals,
 )
-from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params
+from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
 
 
 @dataclass
 class RPNConfig:
-    """The inference fields of the JAX package's ``RPNConfig``."""
+    """The inference and data fields of the JAX package's ``RPNConfig``."""
 
+    features_path: str = ""
+    boxes_path: str = ""
+    dataset_split: str = ""
+    save_path: str = ""
     checkpoint: str = ""  # .npz of a flax params tree ("/"-joined keys)
+    normalize_density: bool = True
     backbone_type: str = "vgg_EF"
     resolution: int = 160
     rotated_bbox: bool = False
@@ -65,6 +78,78 @@ def pad_to_32(v: int) -> int:
     return max(32, int(math.ceil(v / 32)) * 32)
 
 
+def padded_grid(grid, device):
+    """One scene ``(W, L, H, C)`` zero-padded to multiples of 32 as
+    ``(1, W', L', H', C)`` f32 on ``device``, and its sizes ``(1, 3)``."""
+    grid = torch.as_tensor(grid, dtype=torch.float32, device=device)
+    w, l, h, c = grid.shape
+    padded = torch.zeros((1, pad_to_32(w), pad_to_32(l), pad_to_32(h), c),
+                         dtype=torch.float32, device=device)
+    padded[0, :w, :l, :h] = grid
+    return padded, torch.tensor([[float(w), float(l), float(h)]], device=device)
+
+
+def rpn_dataset(cfg, mode: str, preload: bool = False) -> RPNDataset:
+    """The eval split ``mode`` of ``cfg``'s dataset (all scenes without a
+    split file), unaugmented as the JAX trainers build it. The train split,
+    which they augment, comes with training in slice 5."""
+    if mode == "train":
+        raise NotImplementedError("the augmented train split comes with slice 5 "
+                                  "(detector training)")
+    scene_list = read_split(cfg.dataset_split, mode) if cfg.dataset_split else None
+    return RPNDataset(
+        features_path=cfg.features_path, boxes_path=cfg.boxes_path or None,
+        scene_list=scene_list, normalize_density=cfg.normalize_density, preload=preload,
+        seed=cfg.seed)
+
+
+def proposal_metrics(proposals, scores, gts, ap_top_n=None) -> dict:
+    """The JAX trainers' proposal eval: recall at IoU 0.25 / 0.5 of the top
+    300, 1000 and all proposals, AR over IoU 0.5:0.95, AP at 0.25 / 0.5."""
+    out = {}
+    for limit in (300, 1000, None):
+        tag = limit if limit else "all"
+        for thr in (0.25, 0.5):
+            r = evaluate_box_proposals_recall(proposals, scores, gts, thresholds=[thr],
+                                              limit=limit)
+            out[f"recall_{int(thr * 100)}_top{tag}"] = float(r["recalls"][0])
+    out["recall_25"] = out["recall_25_topall"]
+    out["recall_50"] = out["recall_50_topall"]
+    out["ar"] = float(evaluate_box_proposals_recall(proposals, scores, gts)["ar"])
+    for thr in (0.25, 0.5):
+        out[f"ap_{int(thr * 100)}"] = float(evaluate_box_proposals_ap(
+            proposals, scores, gts, iou_thresh=thr, top_k=ap_top_n)["ap"])
+    return out
+
+
+def eval_proposals(dataset: RPNDataset, predict, export=None, filter_mode="none",
+                   filter_threshold=0.7, ap_top_n=None) -> dict:
+    """The JAX trainers' proposal eval loop over ``dataset``.
+
+    ``predict(grid)`` gives a scene's ((boxes, scores, level ids) as numpy,
+    extra); ``export(scene, grid, (boxes, scores, level ids), extra)``
+    writes the scene's files, its proposals TP/FP-filtered against the
+    ground truth with ``filter_mode`` ("tp": best IoU >= ``filter_threshold``,
+    "fp": below it, "none"). Returns ``proposal_metrics`` of the unfiltered
+    proposals."""
+    proposals, scores, gts = [], [], []
+    for i in range(len(dataset)):
+        scene, grid, boxes = dataset.get(i)
+        (b, s, lvl), extra = predict(grid)
+        gt = boxes if boxes is not None else np.zeros((0, 6))
+        proposals.append(b)
+        scores.append(s)
+        gts.append(gt)
+        if export is None:
+            continue
+        if filter_mode != "none" and gt.shape[0]:
+            iou = box_iou_3d_np(b[:, :6], gt).max(axis=1) if b.size else np.zeros(0)
+            keep = iou >= filter_threshold if filter_mode == "tp" else iou < filter_threshold
+            b, s, lvl = b[keep], s[keep], lvl[keep]
+        export(scene, grid, (b, s, lvl), extra)
+    return proposal_metrics(proposals, scores, gts, ap_top_n=ap_top_n)
+
+
 class RPNTrainer:
     def __init__(self, cfg: RPNConfig | None = None, device="cuda"):
         self.cfg = cfg = cfg or RPNConfig()
@@ -84,6 +169,9 @@ class RPNTrainer:
         self.params_loaded = False
         # ``predict_scene``'s stages: profiler ranges ``rpn.<name>``
         self._stage = Stages("rpn")
+
+    def make_dataset(self, mode: str) -> RPNDataset:
+        return rpn_dataset(self.cfg, mode)
 
     # -- state ----------------------------------------------------------------
 
@@ -117,12 +205,7 @@ class RPNTrainer:
         level, features, grid sizes (1, 3), padding mask (1, R))."""
         if not self.params_loaded:
             self.init_state()
-        grid = torch.as_tensor(grid, dtype=torch.float32, device=self.device)
-        w, l, h, c = grid.shape
-        padded = torch.zeros((1, pad_to_32(w), pad_to_32(l), pad_to_32(h), c),
-                             dtype=torch.float32, device=self.device)
-        padded[0, :w, :l, :h] = grid
-        sizes = torch.tensor([[float(w), float(l), float(h)]], device=self.device)
+        padded, sizes = padded_grid(grid, self.device)
         with self._stage("backbone"):
             feats = self.model.features(padded)
         with self._stage("head"):
@@ -152,6 +235,56 @@ class RPNTrainer:
         v = props.valid[0]
         return (props.boxes[0][v], props.scores[0][v], props.level_ids[0][v],
                 [f[0] for f in feats], obj)
+
+    # -- eval and export ------------------------------------------------------
+
+    def eval(self, dataset: RPNDataset, save_results_path=None, output_proposals=False,
+             filter_mode="none", filter_threshold=0.7, output_voxel_scores=False) -> dict:
+        """Proposal recall, AR and AP over ``dataset``. With
+        ``save_results_path`` writes per scene ``rois/<scene>.npz``
+        (proposals, level indices, scores; TP/FP-filtered with
+        ``output_proposals`` and ``filter_mode``) and
+        ``level_features/<scene>.npz`` (``level_k`` f32 arrays and the grid
+        resolution), and with ``output_voxel_scores``
+        ``voxel_scores/<scene>.npz``."""
+
+        def predict(grid):
+            b, s, lvl, feats, obj = self.predict_scene(grid)
+            return (to_numpy(b), to_numpy(s), to_numpy(lvl)), (feats, obj)
+
+        def export(scene, grid, props, extra):
+            (b, s, lvl), (feats, obj) = props, extra
+            for sub in ("rois", "level_features") + (
+                    ("voxel_scores",) if output_voxel_scores else ()):
+                os.makedirs(os.path.join(save_results_path, sub), exist_ok=True)
+            np.savez(os.path.join(save_results_path, "rois", scene + ".npz"),
+                     proposals=b, level_indices=lvl, scores=s)
+            np.savez_compressed(
+                os.path.join(save_results_path, "level_features", scene + ".npz"),
+                **{f"level_{k}": to_numpy(f) for k, f in enumerate(feats)},
+                resolution=np.asarray(grid.shape[:3]))
+            if output_voxel_scores:
+                self._dump_voxel_scores(
+                    os.path.join(save_results_path, "voxel_scores", scene + ".npz"),
+                    obj, grid.shape[:3], feats)
+
+        return eval_proposals(dataset, predict, export if save_results_path else None,
+                              filter_mode if output_proposals else "none", filter_threshold)
+
+    def _dump_voxel_scores(self, path, obj, grid_shape, feats):
+        """Per-voxel sigmoid objectness, max over anchors, per level, cropped
+        to the grid."""
+        a = self.model.gen.num_anchors_per_location()[0]
+        out, offset = {}, 0
+        for lvl, f in enumerate(feats):
+            wl, ll, hl = f.shape[:3]
+            n = wl * ll * hl * a
+            sig = torch.sigmoid(obj[0, offset:offset + n]).reshape(wl, ll, hl, a).amax(-1)
+            stride = self.cfg.fpn_strides[lvl]
+            lim = [int(np.ceil(d / stride)) for d in grid_shape]
+            out[str(lvl)] = to_numpy(sig[:lim[0], :lim[1], :lim[2]])
+            offset += n
+        np.savez_compressed(path, **out)
 
     # -- misc -----------------------------------------------------------------
 

@@ -108,5 +108,5 @@ def test_vgg_fpn_ef_matches_jax():
 def test_build_backbone_names_later_slices():
     assert isinstance(build_backbone("vgg_AF"), VGG_FPN)
     for name in ("resnet", "swin_t"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
             build_backbone(name)

@@ -47,7 +47,10 @@ def test_port_has_every_slice_module():
               # slice 3: instance-field training
               "models.hashgrid", "models.fast_encode", "models.render",
               "data.nerf_dataset", "kernels.scatter_cuda", "kernels.coarse_occ_cuda",
-              "train.ngp_trainer"):
+              "train.ngp_trainer",
+              # slice 4: FCOS proposal inference and the eval modes
+              "models.fcos", "train.fcos_trainer", "cli.run_fcos", "data.datasets",
+              "data.augment", "data.synthetic", "eval.metrics"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -88,7 +91,8 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_refuse_to_fall_back_to_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    from instance_nerf_tpu_torch.cli import run_rcnn, run_rpn
+    from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
     from instance_nerf_tpu_torch.train.ngp_trainer import InstanceFieldTrainer, NGPConfig
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
@@ -109,6 +113,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         run_rcnn.main(["--mode", "check_arch"])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_rpn.main(["--mode", "check_arch", "--rotated_bbox"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FCOSTrainer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FCOSTrainer(FCOSConfig(rotated_bbox=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fcos.main(["--mode", "check_arch", "--rotated_bbox"])
+    for cli in (run_fcos, run_rpn, run_rcnn):  # the eval modes too
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--mode", "eval"])
 
 
 def test_nms_boxes_on_cpu_runs_plain_without_counting():
@@ -154,12 +167,16 @@ def test_coarse_occ_lookup_on_cpu_runs_plain_without_counting():
 
 
 def test_rpn_cli_modes_of_later_slices_raise():
-    from instance_nerf_tpu_torch.cli import run_rpn
+    """Training comes with slice 5: ``--mode train`` of every detector CLI
+    raises, naming it; the eval modes run (``tests/test_torch_eval.py``)."""
+    from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
 
+    for cli in (run_rpn, run_fcos, run_rcnn):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            cli.main(["--mode", "train", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="slice 5"):
-        run_rpn.main(["--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        run_rpn.main(["--mode", "eval", "--device", "cpu"])
+        FCOSTrainer(FCOSConfig(), device="cpu").train_loop()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -142,11 +142,17 @@ def test_top_k_by_score_ties_match_lax_top_k():
 
 
 def test_obb_raises_not_implemented():
-    """OBB NMS above the dense limit takes the JAX package's streamed sweep,
-    which is not in the port yet; at the limit it runs."""
-    k = TN.DENSE_NMS_MAX
-    with pytest.raises(NotImplementedError, match="streamed"):
-        TN.nms_mask(torch.zeros((k + 1, 7)), torch.ones(k + 1), 0.3)
+    """OBB NMS above the JAX package's dense limit sweeps the valid boxes
+    (no longer raises); more boxes to sweep than the kernels take raise
+    ValueError before any IoU is computed."""
+    k = JN.DENSE_NMS_MAX
+    valid = torch.zeros(k + 1, dtype=torch.bool)
+    valid[:3] = True
+    assert TN.nms_mask(torch.zeros((k + 1, 7)), torch.ones(k + 1), 0.3,
+                       valid).tolist() == [True] * 3 + [False] * (k - 2)
+    big = TN.MAX_K + 1
+    with pytest.raises(ValueError, match="limit"):
+        TN.nms_mask(torch.zeros((big, 7)), torch.ones(big), 0.3)
     assert TN.nms_mask(torch.zeros((3, 7)), torch.ones(3), 0.3).tolist() == [True] * 3
 
 
@@ -258,6 +264,63 @@ def test_obb_batched_nms_mask_per_level_matches_jax():
         alone = TN.nms_mask(torch.from_numpy(boxes[m]), torch.from_numpy(scores[m]), 0.3,
                             torch.from_numpy(valid[m]))
         np.testing.assert_array_equal(got.numpy()[m], alone.numpy())
+
+
+def _obb_above_limit_case(name, all_valid):
+    """(boxes, scores, valid, thr) of 600 OBBs, about 20% invalid unless
+    ``all_valid``, score ties among them. ``ties``: axis-aligned boxes with
+    integer corners in [0, 4), so many pairs' rotated IoU is exactly the
+    threshold 1/2."""
+    rng = np.random.default_rng(12)
+    n = 600
+    if name == "ties":
+        lo = rng.integers(0, 3, (n, 3))
+        whd = rng.integers(1, 3, (n, 3))
+        boxes = np.concatenate([lo + whd / 2, whd, np.zeros((n, 1))], 1).astype(np.float32)
+        thr = 0.5
+    else:
+        boxes, thr = random_obbs(rng, n, size=60.0), 0.3
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    scores[100:140] = scores[7]
+    valid = rng.uniform(size=n) < (1.0 if all_valid else 0.8)
+    return boxes, scores, valid, thr
+
+
+@pytest.mark.parametrize("all_valid", [False, True])
+@pytest.mark.parametrize("name", ["random", "ties"])
+def test_obb_nms_mask_above_dense_limit_matches_streamed(monkeypatch, name, all_valid):
+    """Above ``DENSE_NMS_MAX`` (cut to 256) the JAX package streams the OBB
+    sweep in 512-row tiles (``_sweep_xla_streamed``); the port sweeps the
+    dense IoU of the valid boxes alone (all of them with ``all_valid``).
+    Keep masks are equal."""
+    monkeypatch.setattr(JN, "DENSE_NMS_MAX", 256)
+    boxes, scores, valid, thr = _obb_above_limit_case(name, all_valid)
+    iou = np.asarray(_j_pairwise_obb(jnp.asarray(boxes)))
+    upper = iou[np.triu_indices(len(boxes), 1)]
+    if name == "ties":
+        assert (upper == np.float32(thr)).sum() > 100
+    else:
+        assert np.abs(upper - thr).min() >= 1e-5
+    streamed = []
+    real = JN._sweep_xla_streamed
+    monkeypatch.setattr(JN, "_sweep_xla_streamed",
+                        lambda *a, **k: streamed.append(1) or real(*a, **k))
+    want = jax.jit(lambda b, s, v: JN.nms_mask(b, s, thr, v, use_pallas=False))(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid))
+    assert streamed  # the JAX side took the streamed sweep
+    seen = []
+
+    def sweep(m, svalid, t):  # records the size of the swept matrix
+        seen.append((m.shape[0], bool(svalid.all())))
+        return nms_sweep_plain(m, svalid, t)
+
+    got = TN.nms_mask(torch.from_numpy(boxes), torch.from_numpy(scores), thr,
+                      torch.from_numpy(valid), sweep=sweep)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert seen == [(int(valid.sum()), True)]
+    assert valid.all() == all_valid
+    assert 0 < got.sum() < valid.sum()
+    assert not (got & ~torch.from_numpy(valid)).any()
 
 
 # The CUDA kernels' algorithm (csrc/nms_scan.cuh), replayed in numpy. Phase
