@@ -52,6 +52,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``run_rpn`` exporting proposals, level features and voxel scores, and
    ``run_rcnn`` on those proposals; metrics with the JAX trainers' keys,
    finite, and files in the JAX package's layout.
+8d. ``slice_train`` (main path of slice 5a): detector training at the JAX
+   trainers' defaults, full width, batch 4, bf16, seeded random weights:
+   FCOS AABB and rotated at 160^3, the rotated anchor RPN at 200x200x130
+   padded to 224x224x160, the RCNN at 160^3; each trainer's
+   ``benchmark_train_step`` (18 timed steps, CUDA events; scenes/s, peak
+   bytes) and ``profile_train`` (spans forward, loss, backward, optimizer;
+   busy share; top kernels). Every loss finite, ``total`` after 20 steps on
+   the fixed batch below step 0.
+8e. ``small_reference_train``: one step of each trainer on the card
+   against the port's CPU run from the same weights, inputs and sampling
+   draws, in f64 (losses 1e-4, every gradient 1e-4 of its max), and one
+   f32 FCOS step's losses (1e-4).
+8f. ``train_loop``: ``--mode train`` of the three CLIs on a 4-scene
+   dataset, 2 epochs with an eval each (B1 must launch in the AABB FCOS and
+   RCNN evals, B2 in the rotated FCOS and RPN ones), the RCNN grafting the
+   FCOS run's backbone, one checkpoint and ``best/`` kept, then
+   ``--resume`` starting at the saved step.
 9. ``slice_field`` (main path of slice 3): instance-field training through
    ``InstanceFieldTrainer.train`` at the JAX CLI's default model (hash
    encoding, 16 levels, T = 2^19, F = 2, resolutions 16..1024, width 64,
@@ -87,7 +104,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
    launches on its path, error, times (``ms``, ``device_ms``) and bound;
    B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
-   ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...).
+   ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...)
+   and their launches in the train loops' evals (``launches_train_loop``).
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -1600,6 +1618,267 @@ def phase_small_reference_field():
         raise AssertionError(f"f32 card field disagrees with the CPU run: {report}")
 
 
+# a constant lr at the recipes' peak (3e-4, RCNN 1e-3) makes the fresh RCNN
+# heads diverge on one batch; every train loop starts at peak / 25
+TRAIN_SCHEDULE_STEPS = 1000
+# the training cells: the JAX trainers' defaults at full width, batch 4
+TRAIN_CELLS = {
+    "fcos_aabb": dict(kind="fcos", rotated=False, shape=(160, 160, 160)),
+    "fcos_rotated": dict(kind="fcos", rotated=True, shape=(160, 160, 160)),
+    "rpn_rotated": dict(kind="rpn", rotated=True, shape=(200, 200, 130)),
+    "rcnn": dict(kind="rcnn", rotated=False, shape=(160, 160, 160)),
+}
+
+
+def make_trainer(kind, rotated, device, **cfg):
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+    from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
+
+    if kind == "fcos":
+        return FCOSTrainer(FCOSConfig(rotated_bbox=rotated, **cfg), device=device)
+    if kind == "rpn":
+        return RPNTrainer(RPNConfig(rotated_bbox=rotated, **cfg), device=device)
+    return RCNNTrainer(RCNNConfig(**cfg), device=device)
+
+
+def phase_slice_train(smi):
+    """Detector training on the card (main path of slice 5a): for each cell,
+    ``benchmark_train_step`` (3 warm-up and 18 timed steps, CUDA events, on
+    the trainer's synthetic batch of 4 scenes, seeded random weights, bf16
+    compute; the lr of the first steps of a 1000-step one-cycle schedule,
+    whose warm-up a train loop starts with) and ``profile_train`` (spans
+    forward, loss, backward, optimizer; the device's busy share). Every loss
+    of every step must be finite and ``total`` after 20 updates on the fixed
+    batch lower than at step 0."""
+    import torch
+
+    failed = []
+    out = {}
+    for name, cell in TRAIN_CELLS.items():
+        tr = make_trainer(cell["kind"], cell["rotated"], "cuda")
+        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+        zero_launches()
+        t0 = time.perf_counter()
+        bench = tr.benchmark_train_step(reps=18, warmup=3, shape=cell["shape"], batch=4)
+        prof = tr.profile_train(reps=3, warmup=1, shape=cell["shape"], batch=4, top=8)
+        launches = read_launches()
+        losses = bench.pop("losses")
+        finite = all(np.isfinite(v) for m in losses for v in m.values())
+        first, last = losses[0]["total"], losses[20]["total"]
+        line = {"phase": "slice_train", "cell": name, "batch": 4, "shape": list(cell["shape"]),
+                "dtype": "bfloat16", "step_ms_median": bench["median_ms"],
+                "step_ms_mean": bench["mean_ms"], "step_ms_min": bench["min_ms"],
+                "scenes_per_s": bench["scenes_per_s"], "peak_mem_bytes": bench["peak_mem_bytes"],
+                "warmup_s": bench["warmup_s"], "spans_ms": prof["stages_ms_median"],
+                "profile_wall_ms": prof["wall_ms_median"],
+                "device_busy_share": prof["device_busy_share"],
+                "launches_per_step": prof["kernel_launches_per_run"],
+                "top_kernels": prof["top_kernels"], "losses_first": losses[0],
+                "losses_step20": losses[20], "all_finite": finite,
+                "kernel_launches": launches, "seconds": time.perf_counter() - t0,
+                "device": bench["device"], "nvidia_smi": smi}
+        emit(line)
+        out[name] = line
+        if not finite:
+            failed.append(f"{name}: a loss is not finite")
+        if not last < first:
+            failed.append(f"{name}: total {last} after 20 steps, {first} at step 0")
+        del tr
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _grad_errors(cuda_model, cpu_model):
+    """Per parameter, the largest gradient difference over the CPU
+    gradient's largest entry; the VGG trunk (backbone but its FPN) apart."""
+    above, trunk = {}, {}
+    cpu = dict(cpu_model.named_parameters())
+    for name, p in cuda_model.named_parameters():
+        q = cpu[name]
+        if p.grad is None and q.grad is None:
+            continue
+        err = float((p.grad.cpu() - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-30)
+        in_trunk = name.startswith("backbone.") and not name.startswith("backbone.fpn.")
+        (trunk if in_trunk else above)[name] = err
+    return above, trunk
+
+
+def phase_small_reference_train():
+    """One train step of each trainer on the card against the port's CPU run
+    from the same seeded weights, inputs and sampling draws (passed in), on
+    a 40x32x24 grid, batch 2, in f64: the losses must agree to 1e-4
+    relative and every gradient to 1e-4 of its tensor's largest entry. In
+    f32 (TF32 off) a conv's sums round otherwise on the card, ReLU inputs
+    within rounding of 0 fall on either side and the gradients under a
+    ReLU chain (the VGG trunk, FCOS's GroupNorm towers, the RPN and mask
+    heads) move by up to 1e-1 of their largest entry: one f32 FCOS step
+    holds the losses to 1e-4 and reports its gradients' differences."""
+    import torch
+
+    from instance_nerf_tpu_torch.train.loop import synthetic_batch
+    from instance_nerf_tpu_torch.train.rcnn_trainer import _random_rois
+
+    shape = (40, 32, 24)
+    report = {"phase": "small_reference_train", "grid": list(shape), "batch": 2,
+              "tolerance": {"losses_rel": 1e-4, "grads_of_max_f64": 1e-4}}
+    failed = []
+    rng = np.random.default_rng(11)
+    for name, kind, rotated, dtype in (("fcos_aabb_f32", "fcos", False, "float32"),
+                                       ("fcos_aabb", "fcos", False, "float64"),
+                                       ("fcos_rotated", "fcos", True, "float64"),
+                                       ("rpn_rotated", "rpn", True, "float64"),
+                                       ("rpn_aabb", "rpn", False, "float64"),
+                                       ("rcnn", "rcnn", False, "float64"),
+                                       ("rcnn_frozen", "rcnn", False, "float64")):
+        box_dim = 7 if rotated else 6
+        if kind == "rcnn":
+            grids = rng.uniform(0, 1, (2, *shape, 4)).astype(np.float32)
+            gt = np.stack([_random_rois(rng, 24, 6) for _ in range(2)])
+            rois = np.concatenate([gt, np.stack([_random_rois(rng, 24, 10) for _ in range(2)])],
+                                  1) + rng.normal(0, 1, (2, 16, 6)).astype(np.float32)
+            rois[..., 3:] = np.maximum(rois[..., 3:], rois[..., :3] + 1)
+            vm = np.zeros((2, 6, *shape), np.uint8)
+            for i in range(2):
+                for j in range(6):
+                    lo, hi = gt[i, j, :3].astype(int), np.ceil(gt[i, j, 3:]).astype(int)
+                    vm[i, j, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+            args = [grids, np.tile(np.float32(shape), (2, 1)), rois.astype(np.float32),
+                    np.ones((2, 16), bool), gt, rng.integers(1, 11, (2, 6)),
+                    np.ones((2, 6), bool), vm]
+            extra = {"uniforms": torch.rand((2, 2, 22), generator=torch.Generator().manual_seed(1),
+                                            dtype=getattr(torch, dtype))}
+            cfg = dict(dtype="float32", resolution=40, batch_size_per_image=64, max_gt=6,
+                       max_rois=16, freeze_backbone=name == "rcnn_frozen", seed=5)
+        else:
+            grids, sizes, boxes, mask = synthetic_batch(2, shape, 6, box_dim)
+            args = [grids, sizes, boxes, mask]
+            extra = {}
+            cfg = dict(dtype="float32", max_gt=6, seed=5, resolution=40)
+            if kind == "rpn":
+                cfg["batch_size_per_mesh"] = 64
+        run = {}
+        for device in ("cuda", "cpu"):
+            tr = make_trainer(kind, rotated, device, **cfg)
+            tr.init_state()
+            tr.model.to(getattr(torch, dtype))
+            t = [torch.as_tensor(a, device=device) for a in args]
+            t = [x.to(getattr(torch, dtype)) if x.is_floating_point() else x for x in t]
+            kw = {k: v.to(device) for k, v in extra.items()}
+            if kind == "rpn":
+                n_anchors = sum(a.shape[0] for a in tr.model.anchors(tr.model.features(t[0][:1])))
+                kw["uniforms"] = torch.rand((2, 2, n_anchors), dtype=getattr(torch, dtype),
+                                            generator=torch.Generator().manual_seed(2)).to(device)
+            _, metrics = tr.train_step_fn()(tr.state, *t, **kw)
+            run[device] = (tr, {k: float(v) for k, v in metrics.items()})
+        (tc, mc), (tp, mp) = run["cuda"], run["cpu"]
+        loss_err = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-6) for k in mp)
+        above, trunk = _grad_errors(tc.model, tp.model)
+        grad_err = max(above.values())
+        trunk_err = max(trunk.values()) if trunk else 0.0
+        report[name] = {"dtype": dtype, "losses": mp, "max_rel_err_losses": loss_err,
+                        "max_grad_err_above_trunk": grad_err, "max_grad_err_trunk": trunk_err,
+                        "worst_above_trunk": max(above, key=above.get)}
+        if loss_err > 1e-4:
+            failed.append(f"{name}: losses differ by {loss_err} relative")
+        if dtype == "float64" and max(grad_err, trunk_err) > 1e-4:
+            failed.append(f"{name}: gradients differ by {max(grad_err, trunk_err)} of their max")
+        del run, tc, tp
+        torch.cuda.empty_cache()
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_train_loop():
+    """``--mode train`` of the three CLIs on the card, chained as a user runs
+    them, on a dataset of 4 scenes at 64x64x48 written by ``write_dataset``
+    (boxes, and a rotated one): ``run_fcos`` (AABB, then rotated),
+    ``run_rpn --rotated_bbox`` and ``run_rcnn`` grafting the AABB FCOS run's
+    backbone, each 2 epochs with an eval every epoch (B1 in the AABB evals,
+    B2 in the rotated ones: each must launch), then ``run_fcos --resume`` to
+    a third epoch, which must start at the saved step. ``keep_checkpoints``
+    1: one step directory and ``best/`` must be left."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
+    from instance_nerf_tpu_torch.data.synthetic import write_dataset
+    from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager
+
+    report = {"phase": "train_loop", "scenes": 4, "grid": [64, 64, 48]}
+    failed = []
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {}
+        for kind, rotated in (("aabb", False), ("obb", True)):
+            roots[kind] = os.path.join(tmp, kind)
+            write_dataset(roots[kind], num_scenes=4, grid_size=(64, 64, 48), seed=0,
+                          style="room" if rotated else "boxes", rotated=rotated)
+        common = ["--mode", "train", "--num_epochs", "2", "--eval_interval", "1",
+                  "--batch_size", "2", "--keep_checkpoints", "1", "--resolution", "64"]
+
+        def proposal(kind):
+            root = roots[kind]
+            return ["--features_path", os.path.join(root, "features"),
+                    "--boxes_path", os.path.join(root, "boxes_obb" if kind == "obb"
+                                                 else "metadata"),
+                    "--dataset_split", os.path.join(root, "dataset_split.json")]
+
+        def train(name, main, argv, kernel):
+            out = os.path.join(tmp, name)
+            buf = io.StringIO()
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main(argv + ["--save_path", out])
+            seconds = time.perf_counter() - t0
+            counts = read_launches()
+            summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+            mgr = CheckpointManager(out)
+            kept = sorted(os.listdir(out))
+            report[name] = {"summary": summary, "seconds": seconds, "launches": counts,
+                            "checkpoints": kept}
+            launches[name] = counts[kernel]
+            if counts[kernel] == 0:
+                failed.append(f"{name}: {kernel} was not launched in the evals")
+            if mgr.all_steps() != [summary["gstep"]] or "best" not in kept:
+                failed.append(f"{name}: checkpoints {kept}, expected one step and best/")
+            if not all(np.isfinite(v) for v in summary["last"].values()):
+                failed.append(f"{name}: a loss is not finite")
+            if name != "fcos_aabb":  # a checkpoint is about 0.9 GB: keep the grafted one
+                shutil.rmtree(out)
+            return out, summary
+
+        fcos_dir, first = train("fcos_aabb", run_fcos.main, common + proposal("aabb"),
+                                "nms_boxes")
+        train("fcos_rotated", run_fcos.main, common + proposal("obb") + ["--rotated_bbox"],
+              "nms_sweep")
+        train("rpn_rotated", run_rpn.main, common + proposal("obb") + ["--rotated_bbox"],
+              "nms_sweep")
+        train("rcnn", run_rcnn.main, common + ["--dataset_root", roots["aabb"],
+                                               "--rpn_ckpt", fcos_dir], "nms_boxes")
+        # resume the AABB FCOS run to a third epoch
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_fcos.main(common[:3] + ["3"] + common[4:] + proposal("aabb")
+                          + ["--resume", "--save_path", fcos_dir])
+        resumed = json.loads(buf.getvalue().strip().splitlines()[-1])
+        report["fcos_aabb_resume"] = resumed
+        if resumed["start_epoch"] != 2 or resumed["gstep"] != first["gstep"] * 3 // 2:
+            failed.append(f"resume started at epoch {resumed['start_epoch']}, "
+                          f"step {resumed['gstep']}")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 def fcos_entry(nms) -> dict:
     """The FCOS path's figures of one NMS kernel for its ``kernels`` entry:
     launches per ``predict_scene``, K into the NMS, the valid boxes, the
@@ -1659,6 +1938,9 @@ def main():
     fcos = phase_slice_fcos()
     phase_small_reference_fcos()
     phase_eval()
+    phase_slice_train(smi)
+    phase_small_reference_train()
+    launches_train = phase_train_loop()
 
     launches_field, main_step = phase_slice_field()
     launches_fast, fast_step, b5_inputs = phase_slice_field_fast()
@@ -1680,6 +1962,7 @@ def main():
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
+        "launches_train_loop": {k: launches_train[k] for k in ("fcos_aabb", "rcnn")},
         **fcos_entry(fcos["aabb"]["nms"]),
     }, {
         "name": "nms_sweep", "route": "cuda",
@@ -1691,6 +1974,7 @@ def main():
         "call_device_ms": ki_t["call_device_ms"], "plain_ms": pi_ms, "bound_ms": bound_iou_ms,
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
+        "launches_train_loop": {k: launches_train[k] for k in ("fcos_rotated", "rpn_rotated")},
         "random_k4000": timing_iou["k4000"],
         **fcos_entry(fcos["obb"]["nms"]),
     }, {

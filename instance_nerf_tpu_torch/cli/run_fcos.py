@@ -2,12 +2,17 @@
 ``instance_nerf_tpu.cli.run_fcos``, plus ``--device``, ``--dtype`` and
 ``--grid``).
 
-Modes: ``eval`` (recall / AP over a dataset; ``--save_results`` writes the
-proposals of each scene, ``--output_voxel_scores`` the per-voxel scores),
-``check_arch``, ``benchmark`` (``predict_scene`` by CUDA events) and
-``profile`` (``predict_scene`` split by stage and kernel). ``train`` comes
-with slice 5 and raises ``NotImplementedError``; its flags are accepted.
+Modes: ``train`` (``FCOSTrainer.train_loop``: checkpoints under
+``--save_path``, an eval of the val split every ``--eval_interval`` epochs;
+prints the loop's summary as JSON), ``eval`` (recall / AP over a dataset;
+``--save_results`` writes the proposals of each scene,
+``--output_voxel_scores`` the per-voxel scores), ``check_arch``,
+``benchmark`` (``predict_scene`` by CUDA events) and ``profile``
+(``predict_scene`` split by stage and kernel). ``--checkpoint`` is a
+checkpoint directory of the port or a flax params ``.npz``.
 
+    python -m instance_nerf_tpu_torch.cli.run_fcos --mode train --features_path D/features \
+        --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode check_arch --device cpu --rotated_bbox
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode eval --features_path D/features \
         --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT --save_results
@@ -34,13 +39,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--boxes_path", default="")
     p.add_argument("--dataset_split", default="")
     p.add_argument("--save_path", default="")
-    p.add_argument("--checkpoint", default="", help="flax params tree as .npz")
+    p.add_argument("--checkpoint", default="",
+                   help="checkpoint directory of the port, or a flax params tree as .npz")
     p.add_argument("--backbone_type", default="vgg_EF")
     p.add_argument("--input_dim", type=int, default=4)
     p.add_argument("--rotated_bbox", action="store_true")
     p.add_argument("--resolution", type=int, default=160)
     p.add_argument("--normalize_density", action="store_true")
-    # training flags (slice 5), accepted
+    # training
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--num_epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -92,12 +98,13 @@ def config_from_args(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging(args)
-    if args.mode == "train":
-        raise NotImplementedError("--mode train comes with slice 5 (detector training)")
 
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSTrainer
 
     trainer = FCOSTrainer(config_from_args(args), device=args.device)
+    if args.mode == "train":
+        print(json.dumps(trainer.train_loop()))
+        return
     trainer.init_state()
     if args.mode == "eval":
         ds = trainer.make_dataset("test" if args.dataset_split else "val")

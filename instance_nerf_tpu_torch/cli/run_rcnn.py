@@ -1,11 +1,18 @@
 """NeRF-RCNN CLI on PyTorch (same argparse surface as
 ``instance_nerf_tpu.cli.run_rcnn``, plus ``--device``).
 
-Modes: ``eval`` (box and mask mAP / AR over a ``SegmentationDataset``;
-with ``--save_path`` the masks of each scene and ``eval.json``),
-``check_arch``, ``benchmark`` and ``profile`` (a ``torch.profiler`` split
-of ``predict_scene`` by stage and kernel). ``train`` comes with slice 5 and
-raises ``NotImplementedError``.
+Modes: ``train`` (``RCNNTrainer.train_loop`` on the dataset's precomputed
+rois, the backbone grafted from ``--rpn_ckpt``: checkpoints under
+``--save_path``, an eval every ``--eval_interval`` epochs; prints the loop's
+summary as JSON), ``eval`` (box and mask mAP / AR over a
+``SegmentationDataset``; with ``--save_path`` the masks of each scene and
+``eval.json``), ``check_arch``, ``benchmark`` and ``profile`` (a
+``torch.profiler`` split of ``predict_scene`` by stage and kernel).
+``--rpn_ckpt`` and ``--rcnn_ckpt`` are checkpoint directories of the port or
+flax params ``.npz`` files.
+
+    python -m instance_nerf_tpu_torch.cli.run_rcnn --mode train --dataset_root D \
+        --rpn_ckpt FCOS_OUT --save_path OUT
 
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode check_arch
     python -m instance_nerf_tpu_torch.cli.run_rcnn --mode eval --dataset_root D --save_path OUT
@@ -31,8 +38,10 @@ def build_parser():
     p.add_argument("--dataset_root", default="")
     p.add_argument("--dataset_split", default="")
     p.add_argument("--save_path", default="")
-    p.add_argument("--rpn_ckpt", default="")
-    p.add_argument("--rcnn_ckpt", default="", help="flax params tree as .npz")
+    p.add_argument("--rpn_ckpt", default="",
+                   help="FCOS or RPN checkpoint whose backbone is grafted in")
+    p.add_argument("--rcnn_ckpt", default="",
+                   help="checkpoint directory of the port, or a flax params tree as .npz")
     p.add_argument("--rpn_type", choices=["anchor", "fcos"], default="fcos")
     p.add_argument("--backbone_type", default="vgg_EF")
     p.add_argument("--resolution", type=int, default=160)
@@ -72,16 +81,36 @@ def config_from_args(args):
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig
 
     return RCNNConfig(
+        dataset_root=args.dataset_root,
+        dataset_split=args.dataset_split,
+        save_path=args.save_path,
+        rpn_ckpt=args.rpn_ckpt,
         rcnn_ckpt=args.rcnn_ckpt,
         backbone_type=args.backbone_type,
         resolution=args.resolution,
         num_classes=args.num_classes,
         dtype=args.dtype,
         bbox_type=args.bbox_type,
+        batch_size=args.batch_size,
+        num_epochs=args.num_epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        clip_grad_norm=args.clip_grad_norm,
+        log_interval=args.log_interval,
+        eval_interval=args.eval_interval,
+        keep_checkpoints=args.keep_checkpoints,
+        steps_per_call=args.steps_per_call,
+        freeze_backbone=args.freeze_backbone,
+        batch_size_per_image=args.batch_size_per_image,
+        positive_fraction=args.positive_fraction,
+        fg_iou_thresh=args.box_fg_iou_thresh,
+        bg_iou_thresh=args.box_bg_iou_thresh,
         box_score_thresh=args.RCNN_box_score_thresh,
         box_nms_thresh=args.RCNN_box_nms_thresh,
         detections_per_img=args.RCNN_detections_per_img,
+        max_rois=args.max_rois,
         eval_rois=args.eval_rois,
+        max_gt=args.max_gt,
         seed=args.seed,
     )
 
@@ -89,13 +118,14 @@ def config_from_args(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging(args)
-    if args.mode == "train":
-        raise NotImplementedError("--mode train comes with slice 5 (detector training)")
 
     from instance_nerf_tpu_torch.data.datasets import SegmentationDataset
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNTrainer
 
     trainer = RCNNTrainer(config_from_args(args), device=args.device)
+    if args.mode == "train":
+        print(json.dumps(trainer.train_loop()))
+        return
     trainer.init_state()
     if args.mode == "eval":
         ds = SegmentationDataset("val", args.dataset_root, args.dataset_split or None)

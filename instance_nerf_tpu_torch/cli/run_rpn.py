@@ -2,11 +2,15 @@
 ``instance_nerf_tpu.cli.run_rpn``, plus ``--device``, ``--dtype`` and
 ``--grid``).
 
-Modes: ``eval`` (recall / AP over a dataset; with ``--save_results`` the
-per-scene proposals and FPN level features that build the RCNN's
-``rois/``), ``check_arch``, ``benchmark`` and ``profile`` (``predict_scene``
-split by stage and kernel). ``train`` comes with slice 5 and raises
-``NotImplementedError``; its flags come with it.
+Modes: ``train`` (``RPNTrainer.train_loop``: checkpoints under
+``--save_path``, an eval of the val split every ``--eval_interval`` epochs;
+prints the loop's summary as JSON), ``eval`` (recall / AP over a dataset;
+with ``--save_results`` the per-scene proposals and FPN level features that
+build the RCNN's ``rois/``), ``check_arch``, ``benchmark`` and ``profile``
+(``predict_scene`` split by stage and kernel).
+
+    python -m instance_nerf_tpu_torch.cli.run_rpn --mode train --rotated_bbox \
+        --features_path D/features --boxes_path D/boxes_obb --save_path OUT
 
     python -m instance_nerf_tpu_torch.cli.run_rpn --mode check_arch --device cpu --rotated_bbox
     python -m instance_nerf_tpu_torch.cli.run_rpn --mode eval --features_path D/features \
@@ -31,7 +35,8 @@ def build_parser():
     p.add_argument("--boxes_path", default="")
     p.add_argument("--dataset_split", default="")
     p.add_argument("--save_path", default="")
-    p.add_argument("--checkpoint", default="", help="flax params tree as .npz")
+    p.add_argument("--checkpoint", default="",
+                   help="checkpoint directory of the port, or a flax params tree as .npz")
     p.add_argument("--backbone_type", default="vgg_EF")
     p.add_argument("--resolution", type=int, default=160)
     p.add_argument("--normalize_density", action="store_true", default=True)
@@ -39,18 +44,35 @@ def build_parser():
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--grid", type=int, nargs=3, default=None, metavar=("W", "L", "H"),
                    help="benchmark/profile grid (default R R 13R/20)")
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--num_epochs", type=int, default=160)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--weight_decay", type=float, default=1e-3)
+    p.add_argument("--clip_grad_norm", type=float, default=0.1)
+    p.add_argument("--log_interval", type=int, default=30)
     p.add_argument("--log_to_file", action="store_true")
+    p.add_argument("--eval_interval", type=int, default=4)
+    p.add_argument("--keep_checkpoints", type=int, default=2)
+    p.add_argument("--rotate_prob", type=float, default=0.5)
+    p.add_argument("--flip_prob", type=float, default=0.5)
+    p.add_argument("--rot_scale_prob", type=float, default=0.0)
     p.add_argument("--rpn_head_conv_depth", type=int, default=4)
     p.add_argument("--rpn_pre_nms_top_n", type=int, default=1000)
     p.add_argument("--rpn_post_nms_top_n", type=int, default=1000)
     p.add_argument("--rpn_nms_thresh", type=float, default=0.7)
     p.add_argument("--rpn_score_thresh", type=float, default=0.0)
+    p.add_argument("--reg_loss_type", default="smooth_l1",
+                   choices=["smooth_l1", "iou", "linear_iou", "giou", "diou"])
+    p.add_argument("--proj2d_loss_weight", type=float, default=1.0)
+    p.add_argument("--batch_size_per_mesh", type=int, default=256)
     # eval export
     p.add_argument("--save_results", action="store_true")
     p.add_argument("--output_proposals", action="store_true")
     p.add_argument("--filter", choices=["none", "tp", "fp"], default="none")
     p.add_argument("--filter_threshold", type=float, default=0.7)
     p.add_argument("--output_voxel_scores", action="store_true")
+    p.add_argument("--max_gt", type=int, default=64)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -68,12 +90,28 @@ def config_from_args(args):
         backbone_type=args.backbone_type,
         resolution=args.resolution,
         rotated_bbox=args.rotated_bbox,
+        batch_size=args.batch_size,
+        num_epochs=args.num_epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        clip_grad_norm=args.clip_grad_norm,
+        log_interval=args.log_interval,
+        eval_interval=args.eval_interval,
+        keep_checkpoints=args.keep_checkpoints,
         dtype=args.dtype,
         conv_depth=args.rpn_head_conv_depth,
         pre_nms_top_n=args.rpn_pre_nms_top_n,
         post_nms_top_n=args.rpn_post_nms_top_n,
         nms_thresh=args.rpn_nms_thresh,
         score_thresh=args.rpn_score_thresh,
+        reg_loss_type=args.reg_loss_type,
+        proj2d_loss_weight=args.proj2d_loss_weight,
+        batch_size_per_mesh=args.batch_size_per_mesh,
+        flip_prob=args.flip_prob,
+        rotate_prob=args.rotate_prob,
+        rot_scale_prob=args.rot_scale_prob,
+        max_gt=args.max_gt,
+        resume=args.resume,
         seed=args.seed,
     )
 
@@ -81,12 +119,13 @@ def config_from_args(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging(args)
-    if args.mode == "train":
-        raise NotImplementedError("--mode train comes with slice 5 (detector training)")
 
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNTrainer
 
     trainer = RPNTrainer(config_from_args(args), device=args.device)
+    if args.mode == "train":
+        print(json.dumps(trainer.train_loop()))
+        return
     trainer.init_state()
     if args.mode == "eval":
         ds = trainer.make_dataset("test" if args.dataset_split else "val")

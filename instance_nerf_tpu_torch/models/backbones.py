@@ -28,7 +28,7 @@ class VGG_FPN(nn.Module):
         super().__init__()
         if conv_at_start:
             raise NotImplementedError(
-                "VGG_FPN(conv_at_start=True) comes with slice 5 (ROADMAP queue A)")
+                "VGG_FPN(conv_at_start=True) comes with slice 5b (ROADMAP queue A)")
         self.input_size = input_size
         # stem: stride 4 (conv s2 + pool) for large grids, stride 1 for small
         stride = 2 if input_size >= 160 else 1
@@ -71,8 +71,8 @@ def build_backbone(backbone_type: str, input_size: int = 160,
                        conv_at_start=conv_at_start, dtype=dtype)
     if backbone_type == "resnet":
         raise NotImplementedError(
-            "the ResNet-FPN backbone comes with slice 5 (ROADMAP queue A)")
+            "the ResNet-FPN backbone comes with slice 5b (ROADMAP queue A)")
     if backbone_type.startswith("swin"):
         raise NotImplementedError(
-            "the Swin backbone comes with slice 5 (ROADMAP queue A)")
+            "the Swin backbone comes with slice 5b (ROADMAP queue A)")
     raise ValueError(f"Unknown backbone type: {backbone_type}")

@@ -1,6 +1,6 @@
-"""Anchor-free FCOS-3D proposal network, inference (PyTorch counterpart of
-``instance_nerf_tpu.models.fcos``; the target assignment and the losses
-come with detector training).
+"""Anchor-free FCOS-3D proposal network (PyTorch counterpart of
+``instance_nerf_tpu.models.fcos``): head, target assignment, losses and
+post-processing.
 
 Shared conv towers with GroupNorm(32) run on every FPN level, with a
 learnable scale per level, a centerness branch and the focal-prior cls
@@ -25,7 +25,14 @@ import torch.nn.functional as F
 
 from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm
 from instance_nerf_tpu_torch.ops import nms as nms_ops
-from instance_nerf_tpu_torch.ops.boxes import clip_boxes_to_mesh, small_box_mask
+from instance_nerf_tpu_torch.ops.boxes import clip_boxes_to_mesh, obb2points_3d, small_box_mask
+from instance_nerf_tpu_torch.ops.projection import projection_loss_points
+from instance_nerf_tpu_torch.ops.rotated_iou import (
+    box2corners,
+    cal_diou_3d,
+    cal_giou_3d,
+    cal_iou_3d,
+)
 
 INF = 1e8
 
@@ -172,6 +179,260 @@ def decode_fcos_obb(locations: torch.Tensor, reg: torch.Tensor) -> torch.Tensor:
                         torch.full_like(mid[..., 0], 1e-7), mid[..., 0])
     theta = torch.atan2(mid[..., 1].double(), mid_x.double()).to(mid.dtype)
     return torch.stack([cx, cy, cz, w, l, h, theta], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Target assignment. Every function takes leading batch dims on the gt
+# (``(..., K, D)``) and gives ``(..., R, ...)`` over the locations.
+# ---------------------------------------------------------------------------
+
+
+def _center_sample_mask(aabbs: torch.Tensor, info: LevelInfo, radius: float) -> torch.Tensor:
+    """(..., R, K): is a location inside each gt's center region (its center
+    +- ``radius`` strides, clipped to the box)."""
+    centers = 0.5 * (aabbs[..., 0:3] + aabbs[..., 3:6])  # (..., K, 3)
+    rad = info.strides[:, None, None] * radius  # (R, 1, 1)
+    lo = torch.maximum(centers[..., None, :, :] - rad, aabbs[..., None, :, 0:3])
+    hi = torch.minimum(centers[..., None, :, :] + rad, aabbs[..., None, :, 3:6])
+    p = info.locations[:, None, :]  # (R, 1, 3)
+    return torch.all((p - lo > 0) & (hi - p > 0), dim=-1)
+
+
+def _assign(info: LevelInfo, reg, aabbs, gt_mask, center_sampling_radius):
+    """Each location's gt: the smallest-volume gt whose center region holds
+    it and whose largest distance lies in its level's size range (the first
+    of equal volumes). Returns (labels (..., R), targets (..., R, D))."""
+    if center_sampling_radius > 0:
+        in_boxes = _center_sample_mask(aabbs, info, center_sampling_radius)
+    else:
+        in_boxes = reg[..., :6].amin(dim=-1) > 0
+    max_reg = reg[..., :6].amax(dim=-1)  # (..., R, K)
+    cared = ((max_reg >= info.sizes_of_interest[:, 0:1])
+             & (max_reg <= info.sizes_of_interest[:, 1:2]))
+    volumes = ((aabbs[..., 3] - aabbs[..., 0]) * (aabbs[..., 4] - aabbs[..., 1])
+               * (aabbs[..., 5] - aabbs[..., 2]))
+    area = torch.where(in_boxes & cared & gt_mask[..., None, :],
+                       volumes[..., None, :].expand_as(in_boxes),
+                       torch.full_like(max_reg, INF))
+    labels = (area.amin(dim=-1) < INF).to(torch.float32)
+    gt_idx = area.argmin(dim=-1)
+    idx = gt_idx[..., None, None].expand(*gt_idx.shape, 1, reg.shape[-1])
+    return labels, torch.gather(reg.expand(*area.shape, reg.shape[-1]), -2, idx)[..., 0, :]
+
+
+def fcos_targets(info: LevelInfo, gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
+                 center_sampling_radius: float = 1.5, norm_reg_targets: bool = True):
+    """Labels (..., R) in {0, 1} and 6-distance targets (..., R, 6) for AABB
+    gt ``(..., K, 6)``; the targets are in strides with ``norm_reg_targets``."""
+    xs, ys, zs = (info.locations[:, a:a + 1] for a in range(3))
+    g = gt_boxes[..., None, :, :]  # (..., 1, K, 6)
+    reg = torch.stack([xs - g[..., 0], ys - g[..., 1], zs - g[..., 2],
+                       g[..., 3] - xs, g[..., 4] - ys, g[..., 5] - zs], dim=-1)
+    labels, reg_t = _assign(info, reg, gt_boxes, gt_mask, center_sampling_radius)
+    if norm_reg_targets:
+        reg_t = reg_t / info.strides[:, None]
+    return labels, reg_t
+
+
+def centerness_target(reg: torch.Tensor) -> torch.Tensor:
+    """sqrt of the product over the axes of min / max of the two distances."""
+    def ratio(a, b):
+        p = reg[..., [a, b]]
+        return p.amin(dim=-1) / p.amax(dim=-1).clamp_min(1e-10)
+
+    return torch.sqrt((ratio(0, 3) * ratio(1, 4) * ratio(2, 5)).clamp_min(0.0))
+
+
+def encode_fcos_obb(locations: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """OBB ``(..., 7)`` -> 8-param midpoint-offset targets at ``locations``
+    ``(..., 3)`` (the two broadcast): the 6 distances to the OBB's enclosing
+    AABB and the offsets of the top and right edges' touching vertices."""
+    corners = box2corners(boxes[..., [0, 1, 3, 4, 6]])  # (..., 4, 2)
+    xs, ys = corners[..., 0], corners[..., 1]
+    xmax, xmin = xs.amax(dim=-1), xs.amin(dim=-1)
+    ymax, ymin = ys.amax(dim=-1), ys.amin(dim=-1)
+
+    x0 = locations[..., 0] - xmin
+    y0 = locations[..., 1] - ymin
+    z0 = locations[..., 2] - (boxes[..., 2] - boxes[..., 5] / 2)
+    x1 = xmax - locations[..., 0]
+    y1 = ymax - locations[..., 1]
+    z1 = (boxes[..., 2] + boxes[..., 5] / 2) - locations[..., 2]
+
+    xt = torch.where(ymax[..., None] - ys > 0.1, torch.full_like(xs, -1e6), xs)
+    yt = torch.where(xmax[..., None] - xs > 0.1, torch.full_like(ys, 1e6), ys)
+    vx = xt.amax(dim=-1)
+    vy = yt.amin(dim=-1)
+    near_aabb = torch.isclose(vx, xmax) & torch.isclose(vy, ymin)
+    vx = torch.where(near_aabb, xmax, vx)
+    vy = torch.where(near_aabb, ymin, vy)
+
+    alpha = (vx - boxes[..., 0]) / (xmax - xmin).clamp_min(1e-7)
+    beta = (vy - boxes[..., 1]) / (ymax - ymin).clamp_min(1e-7)
+    shape = torch.broadcast_shapes(x0.shape, alpha.shape)
+    return torch.stack([t.expand(shape) for t in (x0, y0, z0, x1, y1, z1, alpha, beta)],
+                       dim=-1)
+
+
+def fcos_targets_obb(info: LevelInfo, gt_obbs: torch.Tensor, gt_mask: torch.Tensor,
+                     center_sampling_radius: float = 1.5, norm_reg_targets: bool = True):
+    """OBB target assignment: labels (..., R) and 8-param targets (..., R, 8)
+    for gt ``(..., K, 7)``, assigned through each OBB's enclosing AABB."""
+    reg = encode_fcos_obb(info.locations[:, None, :], gt_obbs[..., None, :, :])
+    corners = box2corners(gt_obbs[..., [0, 1, 3, 4, 6]])  # (..., K, 4, 2)
+    aabbs = torch.cat([corners.amin(dim=-2), gt_obbs[..., 2:3] - gt_obbs[..., 5:6] / 2,
+                       corners.amax(dim=-2), gt_obbs[..., 2:3] + gt_obbs[..., 5:6] / 2],
+                      dim=-1)
+    labels, reg_t = _assign(info, reg, aabbs, gt_mask, center_sampling_radius)
+    if norm_reg_targets:
+        reg_t = torch.cat([reg_t[..., :6] / info.strides[:, None], reg_t[..., 6:]], dim=-1)
+    return labels, reg_t
+
+
+# ---------------------------------------------------------------------------
+# Losses (f32)
+# ---------------------------------------------------------------------------
+
+
+def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable BCE with logits, as the JAX package writes it."""
+    return logits.clamp_min(0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
+    p = torch.sigmoid(logits)
+    ce = optax_sigmoid_ce(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = loss * (alpha * targets + (1 - alpha) * (1 - targets))
+    return loss
+
+
+def smooth_l1(pred, target, beta: float = 1.0):
+    d = torch.abs(pred - target)
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def iou_loss_6dist(pred: torch.Tensor, target: torch.Tensor, loss_type: str = "iou"):
+    """IoU-family loss on the 6-distance parameterisation."""
+    tl, tt, tf, tr, tb, tba = target.unbind(-1)
+    pl, pt, pf, pr, pb, pba = pred.unbind(-1)
+    target_vol = (tl + tr) * (tt + tb) * (tf + tba)
+    pred_vol = (pl + pr) * (pt + pb) * (pf + pba)
+    w_i = torch.minimum(pl, tl) + torch.minimum(pr, tr)
+    g_w = torch.maximum(pl, tl) + torch.maximum(pr, tr)
+    h_i = torch.minimum(pb, tb) + torch.minimum(pt, tt)
+    g_h = torch.maximum(pb, tb) + torch.maximum(pt, tt)
+    d_i = torch.minimum(pf, tf) + torch.minimum(pba, tba)
+    g_d = torch.maximum(pf, tf) + torch.maximum(pba, tba)
+    ac = g_w * g_h * g_d + 1e-7
+    inter = w_i * h_i * d_i
+    union = target_vol + pred_vol - inter
+    ious = (inter + 1.0) / (union + 1.0)
+    if loss_type == "iou":
+        return -torch.log(ious.clamp_min(1e-10))
+    if loss_type == "linear_iou":
+        return 1.0 - ious
+    if loss_type == "giou":
+        return 1.0 - (ious - (ac - union) / ac)
+    raise NotImplementedError(loss_type)
+
+
+def rotated_iou_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str = "iou"):
+    """OBB loss on 8-param midpoint offsets, both decoded at the origin."""
+    dummy = torch.zeros(pred.shape[:-1] + (3,), dtype=pred.dtype, device=pred.device)
+    pred_boxes = decode_fcos_obb(dummy, pred)
+    tgt_boxes = decode_fcos_obb(dummy, target)
+    if loss_type in ("iou", "linear_iou"):
+        ious, _, _, _, unions = cal_iou_3d(pred_boxes, tgt_boxes, verbose=True)
+        ious = (ious * unions + 1.0) / (unions + 1.0)
+        return -torch.log(ious.clamp_min(1e-10)) if loss_type == "iou" else 1.0 - ious
+    if loss_type == "giou":
+        return cal_giou_3d(pred_boxes, tgt_boxes)[0]
+    if loss_type == "diou":
+        return cal_diou_3d(pred_boxes, tgt_boxes)[0]
+    raise NotImplementedError(loss_type)
+
+
+def fcos_loss(
+    info: LevelInfo,
+    logits: torch.Tensor,  # (N, R)
+    box_reg: torch.Tensor,  # (N, R, 6|8)
+    centerness: torch.Tensor,  # (N, R)
+    gt_boxes: torch.Tensor,  # (N, K, 6|7)
+    gt_mask: torch.Tensor,  # (N, K)
+    pad_mask: torch.Tensor | None = None,  # (N, R)
+    center_sampling_radius: float = 1.5,
+    iou_loss_type: str = "iou",
+    norm_reg_targets: bool = True,
+    use_obb: bool = False,
+    use_additional_l1_loss: bool = False,
+    proj2d_loss_weight: float = 0.0,
+    proj2d_res: int = 160,
+) -> dict:
+    """The FCOS loss on one device: focal cls loss over the un-padded
+    locations, centerness-weighted box loss and centerness BCE over the
+    positives, each normalised as the reference does. Computed in f32
+    whatever the head's dtype.
+
+    The box losses are the JAX package's masked sums. The OBB losses are
+    computed on the positive rows alone: the rest contribute exactly 0 to
+    the loss and the gradient there, so both are equal, and the polygon
+    clipping runs over thousands of rows, not N x R."""
+    logits = logits.float()
+    box_reg = box_reg.float()
+    centerness = centerness.float()
+    target_fn = fcos_targets_obb if use_obb else fcos_targets
+    with torch.no_grad():
+        labels, reg_t = target_fn(info, gt_boxes, gt_mask, center_sampling_radius,
+                                  norm_reg_targets)
+    if pad_mask is None:
+        pad_mask = torch.ones_like(labels, dtype=torch.bool)
+    pos = (labels > 0) & pad_mask
+    zero = torch.zeros_like(logits)
+
+    num_pos_global = pos.sum().to(torch.float32)
+    num_pos_avg = num_pos_global.clamp_min(1.0)
+    cls = sigmoid_focal_loss(logits, labels)
+    cls_loss = torch.where(pad_mask, cls, zero).sum() / num_pos_avg
+
+    ctr_t = torch.where(pos, centerness_target(reg_t[..., :6]), zero)
+    sum_ctr_avg = ctr_t.sum().clamp_min(1e-6)
+
+    if iou_loss_type == "smooth_l1" or not use_obb:
+        # benign values off the positives, so no inf or NaN leaks into the
+        # gradient through the mask (off-box targets have negative distances)
+        ones = torch.ones_like(reg_t)
+        reg_t_s = torch.where(pos[..., None], reg_t, ones)
+        box_reg_s = torch.where(pos[..., None], box_reg, ones)
+        if iou_loss_type == "smooth_l1":
+            per = smooth_l1(box_reg_s, reg_t_s).sum(-1) * ctr_t
+        else:
+            per = iou_loss_6dist(box_reg_s, reg_t_s, iou_loss_type) * ctr_t
+        reg_loss = torch.where(pos, per, zero).sum() / sum_ctr_avg
+    else:
+        at = pos.nonzero(as_tuple=True)
+        p, t, c = box_reg[at], reg_t[at], ctr_t[at]
+        reg_loss = (rotated_iou_loss(p, t, iou_loss_type) * c).sum() / sum_ctr_avg
+        if use_additional_l1_loss:
+            l1 = smooth_l1(p[:, 6:], t[:, 6:]).sum(-1) * c
+            reg_loss = reg_loss + l1.sum() / sum_ctr_avg
+        if proj2d_loss_weight > 0:
+            # corner-projection consistency, decoded at voxel scale (the
+            # stride normalisation undone)
+            scale = info.strides[at[1]][:, None] if norm_reg_targets else 1.0
+            dummy = torch.zeros((p.shape[0], 3), dtype=p.dtype, device=p.device)
+            pb = decode_fcos_obb(dummy, torch.cat([p[:, :6] * scale, p[:, 6:]], dim=-1))
+            tb = decode_fcos_obb(dummy, torch.cat([t[:, :6] * scale, t[:, 6:]], dim=-1))
+            l2d = projection_loss_points(obb2points_3d(pb), obb2points_3d(tb),
+                                         torch.cat([c, c]), res=proj2d_res) / sum_ctr_avg
+            reg_loss = reg_loss + proj2d_loss_weight * l2d
+
+    ctr_bce = optax_sigmoid_ce(centerness, ctr_t)
+    ctr_loss = torch.where(pos, ctr_bce, zero).sum() / num_pos_avg
+    return {"loss_cls": cls_loss, "loss_reg": reg_loss, "loss_centerness": ctr_loss,
+            "num_pos": num_pos_global}
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -86,8 +86,9 @@ class Linear(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm`` on channels-last input: eps 1e-6, f32 stats
-    with ``var = E[x^2] - E[x]^2`` clipped at 0."""
+    """flax ``nn.GroupNorm`` on channels-last input: eps 1e-6, stats in f32
+    or wider (flax's ``force_float32_reductions``) with ``var = E[x^2] -
+    E[x]^2`` clipped at 0."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-6,
                  dtype=None):
@@ -99,7 +100,7 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
         g = self.num_groups
-        xf = x.to(torch.float32)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         xg = xf.reshape(n, -1, g, c // g)
         mean = xg.mean(dim=(1, 3))  # (N, G)
         mean2 = (xg * xg).mean(dim=(1, 3))

@@ -1,8 +1,11 @@
-"""NeRF-RCNN RoI heads and inference chain (PyTorch counterpart of
-``instance_nerf_tpu.models.rcnn``, inference only).
+"""NeRF-RCNN RoI heads, training samples and losses, and the inference
+chain (PyTorch counterpart of ``instance_nerf_tpu.models.rcnn``).
 
-softmax -> per-class decode -> clip -> small-box mask -> per-class NMS
-(kernel B1 through ``ops/nms.py``) -> top-k -> mask head -> mask paste.
+Training: match the proposals (the gt appended) to the gt, draw a balanced
+sample, pack it stably into fixed slots, then the classification, box and
+mask losses. Inference: softmax -> per-class decode -> clip -> small-box
+mask -> per-class NMS (kernel B1 through ``ops/nms.py``) -> top-k -> mask
+head -> mask paste.
 Pooled features keep the JAX layout ``(K, ow, ol, oh, C)``, so ``fc6``
 takes them flattened channels-last exactly as the flax head does.
 """
@@ -14,12 +17,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from instance_nerf_tpu_torch.models.fcos import optax_sigmoid_ce, smooth_l1
 from instance_nerf_tpu_torch.models.layers import Conv3d, Linear, _cast, to_ncdhw, to_ndhwc
 from instance_nerf_tpu_torch.ops import nms as nms_ops
-from instance_nerf_tpu_torch.ops.boxes import clip_boxes_to_mesh, small_box_mask
+from instance_nerf_tpu_torch.ops.boxes import box_iou_3d, clip_boxes_to_mesh, small_box_mask
 from instance_nerf_tpu_torch.ops.coders import AABBCoder
 from instance_nerf_tpu_torch.ops.mask_paste import paste_masks_in_image
 from instance_nerf_tpu_torch.ops.poolers import multiscale_roi_align_3d
+from instance_nerf_tpu_torch.ops.roi_align import roi_align_3d
+from instance_nerf_tpu_torch.ops.sampling import balanced_sample, match_proposals
 
 
 class FastRCNNHead(nn.Module):
@@ -94,6 +100,124 @@ class MaskRCNNPredictor(nn.Module):
         return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
 
 
+class SampledRois(NamedTuple):
+    rois: torch.Tensor  # (N, S, 6)
+    labels: torch.Tensor  # (N, S) int64, 0 = background, -1 = empty slot
+    reg_targets: torch.Tensor  # (N, S, D)
+    matched_gt_idx: torch.Tensor  # (N, S)
+    valid: torch.Tensor  # (N, S)
+    pos: torch.Tensor  # (N, S) positive (label >= 1)
+
+
+def _pack(mask: torch.Tensor, size: int):
+    """The True positions of ``mask`` first, in order (a stable sort), cut to
+    ``size`` slots: (indices, valid)."""
+    idx = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)[..., :size]
+    return idx, torch.gather(mask, -1, idx)
+
+
+@torch.no_grad()
+def select_training_samples(
+    proposals: torch.Tensor,  # (N, P, 6)
+    prop_valid: torch.Tensor,  # (N, P)
+    gt_boxes: torch.Tensor,  # (N, K, 6)
+    gt_labels: torch.Tensor,  # (N, K)
+    gt_mask: torch.Tensor,  # (N, K)
+    batch_size_per_image: int = 512,
+    positive_fraction: float = 0.25,
+    fg_iou_thresh: float = 0.25,
+    bg_iou_thresh: float = 0.25,
+    append_gt: bool = True,
+    box_dim: int = 6,
+    uniforms: torch.Tensor | None = None,  # (N, 2, P [+ K])
+    generator: torch.Generator | None = None,
+) -> SampledRois:
+    """Per scene: label the proposals (the gt appended) by IoU with the low-
+    quality matches recovered, draw a balanced sample (``uniforms`` per
+    scene, else drawn from ``generator``), pack it into min(S, P + K) slots
+    and encode the box targets. ``box_dim = 8`` (OBB RCNN) raises."""
+    if box_dim != 6:
+        raise NotImplementedError("OBB RCNN training (box_dim = 8) comes with slice 5b "
+                                  "(ROADMAP queue A)")
+    coder = AABBCoder()
+    if append_gt:
+        proposals = torch.cat([proposals, gt_boxes], dim=1)
+        prop_valid = torch.cat([prop_valid, gt_mask], dim=1)
+    if uniforms is None:
+        n, p = prop_valid.shape
+        uniforms = torch.rand((n, 2, p), generator=generator, device=prop_valid.device)
+    out = []
+    for props, pvalid, gtb, gtl, gtm, u in zip(proposals, prop_valid, gt_boxes,
+                                                gt_labels, gt_mask, uniforms):
+        quality = box_iou_3d(gtb, props)  # (K, P)
+        quality = torch.where(gtm[:, None], quality, torch.full_like(quality, -1.0))
+        quality = torch.where(pvalid[None, :], quality, torch.full_like(quality, -1.0))
+        matched = match_proposals(quality, fg_iou_thresh, bg_iou_thresh,
+                                  allow_low_quality_matches=True, gt_valid=gtm)
+        clamped = matched.clamp_min(0)
+        zero, ignore = torch.zeros_like(matched), torch.full_like(matched, -1)
+        labels = torch.where(matched >= 0, gtl.to(torch.int64)[clamped],
+                             torch.where(matched == -1, zero, ignore))
+        labels = torch.where(pvalid, labels, ignore)
+        if not bool(gtm.any()):  # a background scene: every valid proposal negative
+            labels = torch.where(pvalid, zero, ignore)
+        sample = balanced_sample(labels, batch_size_per_image, positive_fraction,
+                                 uniforms=u)
+        idx, valid = _pack(sample.pos_mask | sample.neg_mask, batch_size_per_image)
+        rois = props[idx]
+        lab = torch.where(valid, labels[idx], torch.full_like(idx, -1))
+        midx = clamped[idx]
+        reg_t = coder.encode(gtb[midx], rois)
+        reg_t = torch.where(torch.isfinite(reg_t), reg_t, torch.zeros_like(reg_t))
+        out.append(SampledRois(rois, lab, reg_t, midx, valid, lab >= 1))
+    return SampledRois(*(torch.stack(f) for f in zip(*out)))
+
+
+def fastrcnn_loss(class_logits, box_regression, labels, reg_targets, valid):
+    """CE over the sampled rois + smooth-L1 of the positives' own-class
+    deltas, both over the sampled count, in f32.
+
+    class_logits (N, S, C); box_regression (N, S, C, D); labels, valid (N, S)."""
+    class_logits = class_logits.float()
+    box_regression = box_regression.float()
+    safe_labels = labels.clamp_min(0)
+    logp = torch.log_softmax(class_logits, dim=-1)
+    ce = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    n_valid = valid.sum().clamp_min(1)
+    zero = torch.zeros_like(ce)
+    classification_loss = torch.where(valid, ce, zero).sum() / n_valid
+    pos = (labels >= 1) & valid
+    sel = safe_labels[..., None, None].expand(*safe_labels.shape, 1, box_regression.shape[-1])
+    own = torch.gather(box_regression, -2, sel)[..., 0, :]
+    per = smooth_l1(own, reg_targets, beta=1 / 9).sum(-1)
+    box_loss = torch.where(pos, per, zero).sum() / n_valid
+    return classification_loss, box_loss
+
+
+def project_gt_masks(gt_masks: torch.Tensor, boxes: torch.Tensor, matched_idx: torch.Tensor,
+                     m: int) -> torch.Tensor:
+    """Each roi's matched gt voxel mask ``(K, W, L, H)`` uint8, RoI-aligned
+    to ``(m, m, m)`` f32 targets. The mask is chosen inside the align's
+    gather (``roi_batch = matched_idx``), so no ``(slots, W, L, H)`` copy is
+    made and the masks stay uint8 until they are gathered."""
+    return roi_align_3d(gt_masks[..., None], boxes, matched_idx, (m, m, m))[..., 0]
+
+
+def maskrcnn_loss(mask_logits, boxes, gt_masks, labels, matched_idx, valid):
+    """BCE of each valid roi's own-class mask logits against its RoI-aligned
+    gt mask, over valid rois x m^3, in f32.
+
+    mask_logits (M, m, m, m, C); boxes (M, 6); gt_masks (K, W, L, H); labels,
+    matched_idx, valid (M,)."""
+    m = mask_logits.shape[1]
+    targets = project_gt_masks(gt_masks, boxes, matched_idx, m)
+    sel = labels.clamp_min(0)[:, None, None, None, None].expand(*mask_logits.shape[:-1], 1)
+    own = torch.gather(mask_logits.float(), -1, sel)[..., 0]
+    bce = optax_sigmoid_ce(own, targets)
+    denom = (valid.sum() * m ** 3).clamp_min(1)
+    return torch.where(valid[:, None, None, None], bce, torch.zeros_like(bce)).sum() / denom
+
+
 class Detections(NamedTuple):
     boxes: torch.Tensor  # (N, D, 6)
     scores: torch.Tensor  # (N, D)
@@ -117,7 +241,7 @@ def postprocess_detections(
     """Fixed-shape detections per scene; invalid slots carry score and
     label 0. ``nms_sweep`` replaces the NMS sweep (see ``ops.nms.nms_mask``)."""
     if box_dim != 6:
-        raise NotImplementedError("OBB detections come with slice 5 (ROADMAP queue A)")
+        raise NotImplementedError("OBB detections come with slice 5b (ROADMAP queue A)")
     coder = AABBCoder()
     n, p, c = class_logits.shape
     dev = class_logits.device

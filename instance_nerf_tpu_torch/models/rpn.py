@@ -1,6 +1,5 @@
-"""Anchor-based 3D RPN, inference (PyTorch counterpart of
-``instance_nerf_tpu.models.rpn``; the target assignment and the losses come
-with detector training).
+"""Anchor-based 3D RPN (PyTorch counterpart of ``instance_nerf_tpu.models.rpn``):
+anchors, head, target assignment, losses and proposal filtering.
 
 Anchors are numpy arrays built on the host once per feature geometry, as
 the JAX package builds them at trace time. Head outputs are flattened
@@ -25,8 +24,18 @@ import torch.nn.functional as F
 
 from instance_nerf_tpu_torch.models.layers import Conv3d
 from instance_nerf_tpu_torch.ops import nms as nms_ops
-from instance_nerf_tpu_torch.ops.boxes import clip_boxes_to_mesh, small_box_mask
+from instance_nerf_tpu_torch.models.fcos import optax_sigmoid_ce, smooth_l1
+from instance_nerf_tpu_torch.ops.boxes import (
+    box_iou_3d,
+    clip_boxes_to_mesh,
+    obb2hbb_3d,
+    obb2points_3d,
+    small_box_mask,
+)
 from instance_nerf_tpu_torch.ops.coders import AABBCoder, MidpointOffsetCoder
+from instance_nerf_tpu_torch.ops.projection import projection_loss_points
+from instance_nerf_tpu_torch.ops.rotated_iou import cal_diou_3d, cal_giou_3d, cal_iou_3d
+from instance_nerf_tpu_torch.ops.sampling import balanced_sample, match_proposals
 
 DEFAULT_ANCHOR_SIZES = ((8.0,), (16.0,), (32.0,), (64.0,))
 DEFAULT_ASPECT_RATIOS = (
@@ -125,6 +134,124 @@ def anchor_padding_mask(anchors_per_level: Sequence[torch.Tensor],
         limit = torch.ceil(grid_sizes / s) * s  # (N, 3)
         masks.append(torch.all(cell[None] < limit[:, None, :], dim=-1))
     return torch.cat(masks, dim=1)
+
+
+class RPNTargets(NamedTuple):
+    labels: torch.Tensor  # (R,) f32 in {1, 0, -1}
+    matched_gt: torch.Tensor  # (R, 6|7)
+
+
+def assign_targets_to_anchors(
+    anchors: torch.Tensor,  # (R, 6)
+    gt_boxes: torch.Tensor,  # (K, 6|7)
+    gt_mask: torch.Tensor,  # (K,)
+    fg_iou_thresh: float = 0.7,
+    bg_iou_thresh: float = 0.3,
+    pad_mask: torch.Tensor | None = None,  # (R,)
+) -> RPNTargets:
+    """One scene's anchor labels (1 positive, 0 negative, -1 ignored) and
+    matched gt, by AABB IoU (an OBB gt through its enclosing AABB) with the
+    low-quality matches recovered; a scene without gt is all background."""
+    gt_for_iou = obb2hbb_3d(gt_boxes) if gt_boxes.shape[-1] == 7 else gt_boxes
+    quality = box_iou_3d(gt_for_iou, anchors)  # (K, R)
+    quality = torch.where(gt_mask[:, None], quality, torch.full_like(quality, -1.0))
+    if pad_mask is not None:
+        quality = torch.where(pad_mask[None, :], quality, torch.full_like(quality, -1.0))
+    matched = match_proposals(quality, fg_iou_thresh, bg_iou_thresh,
+                              allow_low_quality_matches=True, gt_valid=gt_mask)
+    matched_gt = gt_boxes[matched.clamp_min(0)]
+    one, zero, ignore = (torch.full(matched.shape, v, device=matched.device)
+                         for v in (1.0, 0.0, -1.0))
+    labels = torch.where(matched >= 0, one, torch.where(matched == -1, zero, ignore))
+    if pad_mask is not None:
+        labels = torch.where(pad_mask, labels, ignore)
+    if not bool(gt_mask.any()):
+        labels = zero if pad_mask is None else torch.where(pad_mask, zero, ignore)
+        matched_gt = torch.zeros_like(matched_gt)
+    return RPNTargets(labels, matched_gt)
+
+
+def rpn_loss(
+    objectness: torch.Tensor,  # (N, R)
+    pred_deltas: torch.Tensor,  # (N, R, 6|8)
+    anchors: torch.Tensor,  # (R, 6)
+    gt_boxes: torch.Tensor,  # (N, K, 6|7)
+    gt_mask: torch.Tensor,  # (N, K)
+    batch_size_per_mesh: int = 256,
+    positive_fraction: float = 0.5,
+    fg_iou_thresh: float = 0.7,
+    bg_iou_thresh: float = 0.3,
+    pad_mask: torch.Tensor | None = None,  # (N, R)
+    rotated: bool = False,
+    reg_loss_type: str = "smooth_l1",
+    max_mesh_dim: int = 160,
+    proj2d: bool = True,
+    uniforms: torch.Tensor | None = None,  # (N, 2, R)
+    generator: torch.Generator | None = None,
+) -> dict:
+    """BCE objectness over the sampled anchors, box regression on the
+    positives over the sampled count, and the 2D projection loss over the
+    positive count. ``uniforms`` are the sampler's draws per scene (see
+    ``ops.sampling.balanced_sample``), else drawn from ``generator``.
+
+    In f32 whatever the head's dtype. The box and projection losses are
+    computed on the positive rows alone: the rest add exactly 0 to the loss
+    and the gradient in the JAX package's masked sums, so both are equal.
+    The IoU-type losses take OBBs: the JAX package's would read an AABB's
+    six numbers as an OBB's seven (its gather clamps index 6 to 5)."""
+    if reg_loss_type != "smooth_l1" and not rotated:
+        raise ValueError(f"reg_loss_type {reg_loss_type!r} needs rotated boxes")
+    objectness = objectness.float()
+    pred_deltas = pred_deltas.float()
+    n = objectness.shape[0]
+    coder = MidpointOffsetCoder() if rotated else AABBCoder()
+    with torch.no_grad():
+        targets = [assign_targets_to_anchors(
+            anchors, gt_boxes[i], gt_mask[i], fg_iou_thresh, bg_iou_thresh,
+            None if pad_mask is None else pad_mask[i]) for i in range(n)]
+        labels = torch.stack([t.labels for t in targets])
+        samples = balanced_sample(labels.to(torch.int64), batch_size_per_mesh,
+                                  positive_fraction, uniforms=uniforms, generator=generator)
+    pos = samples.pos_mask
+    sampled = pos | samples.neg_mask
+    num_sampled = sampled.sum().clamp_min(1)
+    num_pos = pos.sum().clamp_min(1)
+
+    bce = optax_sigmoid_ce(objectness, labels)
+    losses = {"loss_objectness":
+              torch.where(sampled, bce, torch.zeros_like(bce)).sum() / num_sampled}
+
+    at = pos.nonzero(as_tuple=True)
+    deltas = pred_deltas[at]
+    anchors_pos = anchors[at[1]]
+    matched_gt = torch.stack([t.matched_gt for t in targets])[at]
+    if reg_loss_type == "smooth_l1":
+        reg_t = coder.encode(matched_gt, anchors_pos)
+        per = smooth_l1(deltas, reg_t, beta=1 / 9).sum(-1)
+    else:
+        pred_boxes = coder.decode(deltas, anchors_pos)
+        if reg_loss_type in ("iou", "linear_iou"):
+            ious, _, _, _, unions = cal_iou_3d(pred_boxes, matched_gt, verbose=True)
+            ious = (ious * unions + 1.0) / (unions + 1.0)
+            per = -torch.log(ious.clamp_min(1e-10)) if reg_loss_type == "iou" else 1 - ious
+        elif reg_loss_type == "giou":
+            per = cal_giou_3d(pred_boxes, matched_gt)[0]
+        else:
+            per = cal_diou_3d(pred_boxes, matched_gt)[0]
+    losses["loss_rpn_box_reg"] = per.sum() / num_sampled
+
+    if proj2d:
+        # box corner points through the 4 fixed cameras
+        pred_boxes = coder.decode(deltas, anchors_pos)
+        if rotated:
+            pts_p, pts_t = obb2points_3d(pred_boxes), obb2points_3d(matched_gt)
+        else:
+            pts_p = torch.cat([pred_boxes[:, :3], pred_boxes[:, 3:]], dim=0)
+            pts_t = torch.cat([matched_gt[:, :3], matched_gt[:, 3:]], dim=0)
+        wts = torch.ones(pts_p.shape[0], dtype=pts_p.dtype, device=pts_p.device)
+        losses["loss_rpn_box_reg_2d"] = projection_loss_points(
+            pts_p, pts_t, wts, res=max_mesh_dim) / num_pos
+    return losses
 
 
 class RPNProposals(NamedTuple):

@@ -4,6 +4,8 @@
 * OBB: ``(N, 7)`` tensors ``(x, y, z, w, l, h, theta)``, z-axis yaw only;
   the 2D helpers take ``(x, y, w, h, theta)``.
 
+Every function is differentiable by autograd where its output is real.
+
 The arithmetic follows the JAX functions op for op, so the AABB results are
 bit-identical on the same inputs; the OBB helpers differ from XLA's only by
 the last bit of ``sin`` / ``cos`` / ``atan2``.
@@ -125,3 +127,43 @@ def obb2poly(obboxes: torch.Tensor) -> torch.Tensor:
     v2 = torch.cat([-h / 2 * s, -h / 2 * c], dim=-1)
     return torch.cat([center + v1 + v2, center + v1 - v2,
                       center - v1 - v2, center - v1 + v2], dim=-1)
+
+
+def box_centers(boxes: torch.Tensor) -> torch.Tensor:
+    """Centers of ``(..., 6)`` AABBs or ``(..., 7)`` OBBs."""
+    if boxes.shape[-1] == 6:
+        return 0.5 * (boxes[..., 0:3] + boxes[..., 3:6])
+    return boxes[..., 0:3]
+
+
+def obb2poly_3d(obboxes: torch.Tensor) -> torch.Tensor:
+    """3D OBB ``(..., 7)`` -> its 8 corners ``(..., 24)``: the 4 lower ones,
+    then the 4 upper ones, each ``(x, y, z)``."""
+    poly2d = obb2poly(obboxes[..., [0, 1, 3, 4, 6]])
+    half_h = obboxes[..., 5:6] / 2
+    z0 = obboxes[..., 2:3] - half_h
+    z1 = obboxes[..., 2:3] + half_h
+    pts = poly2d.reshape(*poly2d.shape[:-1], 4, 2)
+    lower = torch.cat([pts, z0[..., None, :].expand(*pts.shape[:-1], 1)], dim=-1)
+    upper = torch.cat([pts, z1[..., None, :].expand(*pts.shape[:-1], 1)], dim=-1)
+    lead = poly2d.shape[:-1]
+    return torch.cat([lower.reshape(*lead, 12), upper.reshape(*lead, 12)], dim=-1)
+
+
+def aabb2obb_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """AABB ``(..., 6)`` -> OBB ``(..., 7)`` with theta = 0."""
+    center = 0.5 * (boxes[..., 0:3] + boxes[..., 3:6])
+    whd = boxes[..., 3:6] - boxes[..., 0:3]
+    return torch.cat([center, whd, torch.zeros_like(boxes[..., 0:1])], dim=-1)
+
+
+def obb2points_3d(obboxes: torch.Tensor) -> torch.Tensor:
+    """Two diagonal corners per OBB ``(..., 7)``, stacked along dim 0 (the
+    2D projection loss's points): ``center - v`` of every box, then
+    ``center + v``."""
+    center = obboxes[..., 0:3]
+    w, l, h = obboxes[..., 3:4], obboxes[..., 4:5], obboxes[..., 5:6]
+    theta = obboxes[..., 6:7]
+    c, s = torch.cos(theta), torch.sin(theta)
+    vector = torch.cat([w / 2 * c - l / 2 * s, w / 2 * s + l / 2 * c, h / 2], dim=-1)
+    return torch.cat([center - vector, center + vector], dim=0)

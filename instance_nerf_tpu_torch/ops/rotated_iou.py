@@ -1,6 +1,7 @@
-"""Rotated (z-yaw) 3D box IoU, forward only (PyTorch counterpart of
-``instance_nerf_tpu.ops.rotated_iou``; the GIoU / DIoU enclosing boxes are
-training losses and come with detector training).
+"""Rotated (z-yaw) 3D box IoU and the GIoU / DIoU losses (PyTorch
+counterpart of ``instance_nerf_tpu.ops.rotated_iou``), differentiable by
+autograd: gradients flow through the vertex coordinates; the vertex order
+is an index and carries none.
 
 Algorithm, as in the JAX package:
 
@@ -164,6 +165,7 @@ def _split_3d(box3d):
 
 
 def _iou_3d(iou_2d, u, zmin1, zmax1, zmin2, zmax2, v1, v2):
+    """(3D IoU, 3D union)."""
     z_overlap = (torch.minimum(zmax1, zmax2) - torch.maximum(zmin1, zmin2)).clamp_min(0.0)
     inter_3d = iou_2d * u * z_overlap
     # same convexity bound as cal_iou: keeps IoU in [0, 1] for degenerate
@@ -171,21 +173,27 @@ def _iou_3d(iou_2d, u, zmin1, zmax1, zmin2, zmax2, v1, v2):
     valid = (v1 > 0) & (v2 > 0)
     inter_3d = torch.minimum(inter_3d.clamp_min(0.0), torch.minimum(v1, v2))
     u3d = (v1 + v2 - inter_3d).clamp_min(EPS)
-    return torch.where(valid, inter_3d / u3d, torch.zeros_like(inter_3d))
+    return torch.where(valid, inter_3d / u3d, torch.zeros_like(inter_3d)), u3d
 
 
 def _volume(box3d):
     return box3d[..., 3] * box3d[..., 4] * box3d[..., 5]
 
 
-def cal_iou_3d(box3d1: torch.Tensor, box3d2: torch.Tensor) -> torch.Tensor:
+def cal_iou_3d(box3d1: torch.Tensor, box3d2: torch.Tensor, verbose: bool = False):
     """3D rotated IoU for (..., 7) [x, y, z, w, l, h, theta] boxes whose
-    leading dims broadcast."""
+    leading dims broadcast. ``verbose`` also returns the 2D corners of both,
+    the z extent of their union and the 3D union: (iou, corners1, corners2,
+    z_range, union)."""
     box1, zmin1, zmax1 = _split_3d(box3d1)
     box2, zmin2, zmax2 = _split_3d(box3d2)
-    iou_2d, _, _, u = cal_iou(box1, box2)
-    return _iou_3d(iou_2d, u, zmin1, zmax1, zmin2, zmax2,
-                   _volume(box3d1), _volume(box3d2))
+    iou_2d, c1, c2, u = cal_iou(box1, box2)
+    iou3d, u3d = _iou_3d(iou_2d, u, zmin1, zmax1, zmin2, zmax2,
+                         _volume(box3d1), _volume(box3d2))
+    if verbose:
+        z_range = (torch.maximum(zmax1, zmax2) - torch.minimum(zmin1, zmin2)).clamp_min(0.0)
+        return iou3d, c1, c2, z_range, u3d
+    return iou3d
 
 
 def pairwise_iou_3d(a: torch.Tensor, b: torch.Tensor,
@@ -207,5 +215,103 @@ def pairwise_iou_3d(a: torch.Tensor, b: torch.Tensor,
         r = slice(r0, min(r0 + rows, n))
         iou_2d, u = _iou_2d(ca[r, None], cb[None], area_a[r, None], area_b[None])
         out[r] = _iou_3d(iou_2d, u, zmin_a[r, None], zmax_a[r, None],
-                         zmin_b[None], zmax_b[None], vol_a[r, None], vol_b[None])
+                         zmin_b[None], zmax_b[None], vol_a[r, None], vol_b[None])[0]
     return out
+
+
+# enclosing boxes for the GIoU / DIoU losses: (w, h) of a rectangle holding
+# the 8 corners of both boxes
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm`` over the last dim, as it differentiates."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
+def enclosing_box_aligned(corners1, corners2):
+    c = torch.cat([corners1, corners2], dim=-2)
+    w = c[..., 0].amax(dim=-1) - c[..., 0].amin(dim=-1)
+    h = c[..., 1].amax(dim=-1) - c[..., 1].amin(dim=-1)
+    return w, h
+
+
+def enclosing_box_pca(corners1, corners2):
+    """Along the principal axes of the 8 corners. The covariance's products
+    are written out in f32 (the JAX einsum runs at HIGHEST precision)."""
+    c = torch.cat([corners1, corners2], dim=-2)  # (..., 8, 2)
+    c = c - c.mean(dim=-2, keepdim=True)
+    a = torch.sum(c[..., 0] * c[..., 0], dim=-1)
+    b = torch.sum(c[..., 1] * c[..., 1], dim=-1)
+    cc = torch.sum(c[..., 0] * c[..., 1], dim=-1)
+    # EPS floor: sqrt'(0) = inf would NaN the gradient at collinear corners
+    delta = torch.sqrt((a * a + 4 * cc * cc - 2 * a * b + b * b).clamp_min(EPS))
+    cc_safe = torch.where(torch.abs(cc) < EPS, torch.full_like(cc, EPS), cc)
+    one = torch.ones_like(a)
+    v1 = torch.stack([(a - b - delta) / (2 * cc_safe), one], dim=-1)
+    v2 = torch.stack([(a - b + delta) / (2 * cc_safe), one], dim=-1)
+    v1 = v1 / _norm(v1)
+    v2 = v2 / _norm(v2)
+    p1 = torch.sum(c * v1[..., None, :], dim=-1)
+    p2 = torch.sum(c * v2[..., None, :], dim=-1)
+    w = p1.amax(dim=-1) - p1.amin(dim=-1)
+    h = p2.amax(dim=-1) - p2.amin(dim=-1)
+    return w, h
+
+
+def _hull_edge_pairs():
+    """The 24 corner pairs that can be an edge of the 8 corners' convex
+    hull: all 28 pairs of ``triu_indices(8, 1)`` but the 4 box diagonals."""
+    skip = {(0, 2), (1, 3), (5, 7), (4, 6)}
+    pairs = [(i, j) for i in range(8) for j in range(i + 1, 8) if (i, j) not in skip]
+    return [i for i, _ in pairs], [j for _, j in pairs]
+
+
+_PAIR_I, _PAIR_J = _hull_edge_pairs()
+
+
+def smallest_bounding_box(corners1, corners2):
+    """Minimum-area rectangle holding the 8 corners: it lies along a hull
+    edge, so every candidate pair's direction is tried (the first of equal
+    areas wins, as ``jnp.argmin``)."""
+    pts = torch.cat([corners1, corners2], dim=-2)  # (..., 8, 2)
+    a = pts[..., _PAIR_I, :]  # (..., 24, 2)
+    d = pts[..., _PAIR_J, :] - a
+    norm = _norm(d).clamp_min(EPS)
+    u = d / norm  # edge direction
+    n = torch.stack([-u[..., 1], u[..., 0]], dim=-1)  # its normal
+    rel = pts[..., None, :, :] - a[..., :, None, :]  # (..., 24, 8, 2)
+    pu = torch.sum(rel * u[..., :, None, :], dim=-1)
+    pn = torch.sum(rel * n[..., :, None, :], dim=-1)
+    w = pu.amax(dim=-1) - pu.amin(dim=-1)  # (..., 24)
+    h = pn.amax(dim=-1) - pn.amin(dim=-1)
+    areas = torch.where(norm[..., 0] < 1e-6, torch.full_like(w, torch.inf), w * h)
+    best = areas.argmin(dim=-1, keepdim=True)
+    return torch.gather(w, -1, best)[..., 0], torch.gather(h, -1, best)[..., 0]
+
+
+def enclosing_box(corners1, corners2, enclosing_type: str = "smallest"):
+    if enclosing_type == "aligned":
+        return enclosing_box_aligned(corners1, corners2)
+    if enclosing_type == "pca":
+        return enclosing_box_pca(corners1, corners2)
+    if enclosing_type == "smallest":
+        return smallest_bounding_box(corners1, corners2)
+    raise ValueError(f"Unknown enclosing type: {enclosing_type}")
+
+
+def cal_giou_3d(box3d1, box3d2, enclosing_type: str = "smallest"):
+    """3D rotated GIoU loss: (loss, giou, iou)."""
+    iou3d, c1, c2, z_range, u3d = cal_iou_3d(box3d1, box3d2, verbose=True)
+    w, h = enclosing_box(c1, c2, enclosing_type)
+    v_c = (z_range * w * h).clamp_min(EPS)
+    giou_loss = 1.0 - iou3d + (v_c - u3d) / v_c
+    return giou_loss, 1.0 - giou_loss, iou3d
+
+
+def cal_diou_3d(box3d1, box3d2, enclosing_type: str = "smallest"):
+    """3D rotated DIoU loss: (loss, iou)."""
+    iou3d, c1, c2, z_range, _ = cal_iou_3d(box3d1, box3d2, verbose=True)
+    w, h = enclosing_box(c1, c2, enclosing_type)
+    d2 = torch.sum((box3d1[..., 0:3] - box3d2[..., 0:3]) ** 2, dim=-1)
+    c2_ = (w * w + h * h + z_range * z_range).clamp_min(EPS)
+    return 1.0 - iou3d + d2 / c2_, iou3d

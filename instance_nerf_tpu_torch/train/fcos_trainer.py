@@ -1,17 +1,20 @@
-"""FCOS NeRF-RPN proposal inference and eval (PyTorch counterpart of
-``instance_nerf_tpu.train.fcos_trainer``; the training methods come with
-slice 5).
+"""FCOS NeRF-RPN training, proposal inference and eval (PyTorch
+counterpart of ``instance_nerf_tpu.train.fcos_trainer``).
 
 ``FCOSTrainer`` runs on ``device="cuda"`` unless the caller asks for the
-CPU; with no CUDA device it raises. ``predict_scene`` pads a scene's grid
+CPU; with no CUDA device it raises. ``train_loop`` trains on the augmented
+train split one step per dispatch (``steps_per_call > 1`` and the
+device-resident store ``device_data`` come with slice 5b), evaluating and
+checkpointing as the JAX trainer does. ``predict_scene`` pads a scene's grid
 to multiples of 32, runs the backbone and the FCOS head and post-processes
 the locations of the un-padded region: in AABB mode the NMS is kernel B1,
 in OBB mode the rotated IoU of the valid candidates swept by kernel B2.
 """
 from __future__ import annotations
 
+import logging
 import os
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
@@ -27,23 +30,38 @@ from instance_nerf_tpu_torch.models.fcos import (
     padding_mask,
     sigmoid,
 )
+from instance_nerf_tpu_torch.parallel.train_step import (
+    TrainState,
+    make_fcos_train_step,
+    make_optimizer,
+)
+from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager, load_params_into
+from instance_nerf_tpu_torch.train.loop import device_batch, synthetic_batch, train_epochs
 from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
-from instance_nerf_tpu_torch.train.rpn_trainer import eval_proposals, padded_grid, rpn_dataset
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
+from instance_nerf_tpu_torch.train.rpn_trainer import (
+    eval_proposals,
+    padded_grid,
+    rpn_dataset,
+)
+from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
+
+log = logging.getLogger("fcos_trainer")
 
 
 @dataclass
 class FCOSConfig:
-    """The JAX package's ``FCOSConfig``: the data, model and inference
-    fields are used; the training, parallel and device-store fields are
-    accepted and unused until slice 5."""
+    """The JAX package's ``FCOSConfig``. ``n_spatial`` (the mesh's spatial
+    axis) is accepted and unused on one card; ``steps_per_call > 1`` and
+    ``device_data`` raise in ``train_loop`` (slice 5b)."""
 
     # data
     features_path: str = ""
     boxes_path: str = ""
     dataset_split: str = ""
     save_path: str = ""
-    checkpoint: str = ""  # .npz of a flax params tree ("/"-joined keys)
+    # a checkpoint directory of the port, or a flax params tree as .npz
+    # ("/"-joined keys)
+    checkpoint: str = ""
     resolution: int = 160
     normalize_density: bool = True
     # model; compute dtype (params stay f32), bf16 on the card by default
@@ -55,7 +73,7 @@ class FCOSConfig:
     norm_reg_targets: bool = True
     centerness_on_reg: bool = True
     conv_at_start: bool = False
-    # train (unused here)
+    # train
     batch_size: int = 4
     num_epochs: int = 160
     lr: float = 3e-4
@@ -80,7 +98,7 @@ class FCOSConfig:
     pre_nms_thresh: float = 0.0
     min_size: float = 0.0
     ap_top_n: int | None = None
-    # train loop, parallel, device store (unused here)
+    # train loop, parallel, device store
     resume: bool = False
     n_spatial: int = 1
     max_gt: int = 64
@@ -92,6 +110,39 @@ class FCOSConfig:
     seed: int = 0
     preload: bool = False
     device_data: bool = False
+
+
+def device_augment(g, size, boxes, flip_p: float, rot_p: float, obb: bool, draws):
+    """The JAX trainer's on-device mirror of ``augment_rpn_inputs`` (rot90,
+    then flip W, then flip L) for one padded scene: each acts on the padded
+    cube, then the content (extent ``size``, zero padding) is rolled back to
+    the origin. ``draws`` (3,) are the uniforms of the rot90 and the two
+    flips (the JAX key's ``kr, kw, kl``). g (W, L, H, C) with W == L;
+    size (3,) f32; boxes (K, 6|7)."""
+    def roll(x, extent, axis):
+        return torch.roll(x, int(extent) - x.shape[axis], dims=axis)
+
+    s1 = int(size[1])
+    if bool(draws[0] < rot_p):  # rot90 about z: swap W / L, flip the new W
+        g = roll(torch.flip(g.transpose(0, 1), dims=(0,)), s1, 0)
+        b = torch.cat([boxes[:, [1, 0, 2, 4, 3, 5]], boxes[:, 6:]], dim=-1)
+        if obb:
+            b[:, 0] = size[1] - b[:, 0]
+        else:
+            b[:, 0], b[:, 3] = size[1] - b[:, 3], size[1] - b[:, 0]
+        boxes, size = b, size[[1, 0, 2]]
+    for axis, draw in ((0, draws[1]), (1, draws[2])):
+        if bool(draw < flip_p):
+            ext = size[axis].to(torch.int32).to(boxes.dtype)  # the extent, truncated
+            g = roll(torch.flip(g, dims=(axis,)), int(ext), axis)
+            b = boxes.clone()
+            if obb:
+                b[:, axis] = ext - boxes[:, axis]
+                b[:, 6] = -b[:, 6]
+            else:
+                b[:, axis], b[:, axis + 3] = ext - boxes[:, axis + 3], ext - boxes[:, axis]
+            boxes = b
+    return g, size, boxes
 
 
 def init_fcos_params(model: FCOSOverNeRF, seed: int) -> None:
@@ -122,8 +173,13 @@ class FCOSTrainer:
                                   use_obb=cfg.rotated_bbox, dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
-        # ``predict_scene``'s stages: profiler ranges ``fcos.<name>``
+        self.state: TrainState | None = None
+        self.ckpt = (CheckpointManager(cfg.save_path, keep=cfg.keep_checkpoints,
+                                       best_metric="recall_50") if cfg.save_path else None)
+        # ``predict_scene``'s stages: profiler ranges ``fcos.<name>``; a train
+        # step's: ``fcos_train.<name>``
         self._stage = Stages("fcos")
+        self._train_stage = Stages("fcos_train")
 
     # -- data ----------------------------------------------------------------
 
@@ -132,14 +188,20 @@ class FCOSTrainer:
 
     # -- state ---------------------------------------------------------------
 
-    def init_state(self):
-        """Seeded random init, or ``cfg.checkpoint`` (a flax params ``.npz``)."""
-        if self.cfg.checkpoint:
-            self.load_jax_params(self.cfg.checkpoint)
-            return
-        init_fcos_params(self.model, self.cfg.seed)
+    def init_state(self, total_steps: int | None = None):
+        """Seeded random init, or ``cfg.checkpoint`` (its params), and the
+        optimizer (one-cycle over ``total_steps``, else a constant lr)."""
+        cfg = self.cfg
+        if cfg.checkpoint:
+            load_params_into(self.model, cfg.checkpoint, fcos_params_from_jax)
+        else:
+            init_fcos_params(self.model, cfg.seed)
         self.model.to(self.device)
         self.params_loaded = True
+        tx = make_optimizer(self.model.named_parameters(), lr=cfg.lr,
+                            weight_decay=cfg.weight_decay,
+                            clip_grad_norm=cfg.clip_grad_norm, total_steps=total_steps)
+        self.state = TrainState(self.model, tx)
 
     def load_jax_params(self, npz_or_tree):
         """Load a flax ``FCOSOverNeRF`` params tree (nested dict of arrays,
@@ -152,8 +214,92 @@ class FCOSTrainer:
         self.model.to(self.device)
         self.params_loaded = True
 
-    def train_loop(self):
-        raise NotImplementedError("FCOS training comes with slice 5 (detector training)")
+    # -- train ---------------------------------------------------------------
+
+    def train_step_fn(self, stage=None):
+        cfg = self.cfg
+        return make_fcos_train_step(
+            self.model, reg_loss_weight=cfg.reg_loss_weight,
+            center_sampling_radius=cfg.center_sampling_radius,
+            iou_loss_type=cfg.iou_loss_type, use_obb=cfg.rotated_bbox,
+            use_additional_l1_loss=cfg.use_additional_l1_loss,
+            proj2d_loss_weight=cfg.proj2d_loss_weight, remat=cfg.remat,
+            stage=stage or self._train_stage)
+
+    def train_loop(self) -> dict:
+        """Train on the augmented train split (resuming from ``save_path``'s
+        latest checkpoint with ``resume``); returns the loop's summary
+        (``train/loop.py:train_epochs``)."""
+        cfg = self.cfg
+        if cfg.steps_per_call > 1:
+            raise NotImplementedError("steps_per_call > 1 comes with slice 5b "
+                                      "(ROADMAP queue A)")
+        if cfg.device_data:
+            raise NotImplementedError("device_data comes with slice 5b (ROADMAP queue A)")
+        train_ds = self.make_dataset("train")
+        val_ds = self.make_dataset("val") if cfg.dataset_split else None
+        steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
+        self.init_state(total_steps=steps_per_epoch * cfg.num_epochs)
+        start_epoch = 0
+        if cfg.resume and self.ckpt and self.ckpt.latest_step() is not None:
+            state, meta = self.ckpt.restore(self.state.state_dict(), map_location=self.device)
+            self.state.load_state_dict(state)
+            start_epoch = min(meta["step"] // steps_per_epoch, cfg.num_epochs)
+            log.info("resumed at step %s (epoch %d)", meta["step"], start_epoch)
+        step_fn = self.train_step_fn()
+        pad_shape = (cfg.resolution,) * 3
+        box_dim = 7 if cfg.rotated_bbox else 6
+
+        def load(idx):
+            return train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim,
+                                  augment=True)
+
+        def step(batch):
+            self.state, metrics = step_fn(self.state, *device_batch(batch, self.device))
+            return metrics
+
+        def save(gstep, metrics):
+            self.ckpt.save(gstep, self.state.state_dict(), config=asdict(cfg), metrics=metrics)
+
+        return train_epochs(cfg, len(train_ds), start_epoch, load, step,
+                            evaluate=(lambda: self.eval(val_ds)) if val_ds else None,
+                            save=save if self.ckpt else None, log=log)
+
+    def _card_train_batch(self, batch, shape):
+        if self.device.type != "cuda":
+            raise RuntimeError("timing the card needs device='cuda'")
+        cfg = self.cfg
+        arrays = synthetic_batch(batch, shape, cfg.max_gt, 7 if cfg.rotated_bbox else 6,
+                                 cfg.input_dim)
+        return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
+    def _card_train_step(self, batch, shape):
+        """One train step on the card's synthetic batch, as a closure that
+        returns the step's metrics."""
+        if self.state is None:
+            self.init_state()
+        args = self._card_train_batch(batch, shape)
+        step_fn = self.train_step_fn()
+
+        def run():
+            self.state, metrics = step_fn(self.state, *args)
+            return metrics
+
+        return run
+
+    def benchmark_train_step(self, reps=18, shape=(160, 160, 160), batch=4, warmup=3):
+        """Train steps on the JAX trainer's synthetic batch
+        (``train/loop.py:synthetic_batch``) timed with CUDA events
+        (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
+        warmed steps, scenes/s, peak device memory, every step's losses."""
+        return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
+                               reps=reps, warmup=warmup)
+
+    def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
+        """Where a train step's time goes (``train/timing.py:profile_ms``), by
+        span: forward, loss (targets included), backward, optimizer."""
+        return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
+                          reps=reps, warmup=warmup, top=top, watch=())
 
     # -- inference -----------------------------------------------------------
 

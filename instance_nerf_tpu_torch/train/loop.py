@@ -1,0 +1,101 @@
+"""The detector trainers' shared training loop and batches.
+
+``train_epochs`` is the JAX trainers' epoch loop: a permutation of the
+train split per epoch from ``default_rng(seed)``, the last partial batch
+padded from the epoch's first scenes, one host read of ``total`` per step,
+a log line every ``log_interval`` steps, and at the end of an epoch the
+eval and checkpoint rules of the FCOS trainer (the superset of the three):
+eval and save with the metrics every ``eval_interval`` epochs when there is
+a val split, else save then; save every ``save_interval`` epochs; save at
+the end.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+
+def train_epochs(cfg, n_scenes: int, start_epoch: int, load, step, evaluate=None,
+                 save=None, log: logging.Logger | None = None) -> dict:
+    """Train from ``start_epoch`` to ``cfg.num_epochs`` (or
+    ``stop_after_epochs`` epochs, where the config has it).
+
+    ``load(indices)`` builds a host batch, ``step(batch)`` runs one update and
+    returns its metrics (device tensors), ``evaluate()`` the val metrics or
+    None without a val split, ``save(gstep, metrics)`` writes a checkpoint.
+    Returns a summary: epochs and steps run, host seconds spent loading
+    batches and stepping, the last step's metrics and the last eval's."""
+    log = log or logging.getLogger("train")
+    bs = cfg.batch_size
+    steps_per_epoch = max(1, n_scenes // bs)
+    rng = np.random.default_rng(cfg.seed)
+    gstep = start_epoch * steps_per_epoch
+    end_epoch = cfg.num_epochs
+    stop_after = getattr(cfg, "stop_after_epochs", 0)
+    if stop_after:
+        end_epoch = min(end_epoch, start_epoch + max(0, stop_after))
+    save_interval = getattr(cfg, "save_interval", 0)
+    out = {"start_epoch": start_epoch, "epochs": 0, "steps": 0, "data_s": 0.0,
+           "step_s": 0.0, "last": None, "eval": None}
+    for epoch in range(start_epoch, end_epoch):
+        order = rng.permutation(n_scenes)
+        t0 = time.perf_counter()
+        for s in range(steps_per_epoch):
+            idx = order[s * bs:(s + 1) * bs]
+            if len(idx) < bs:  # pad the last partial batch
+                idx = np.concatenate([idx, order[:bs - len(idx)]])
+            t1 = time.perf_counter()
+            batch = load(idx)
+            t2 = time.perf_counter()
+            metrics = step(batch)
+            # one read a step: the update is done before the next is queued
+            total = float(metrics["total"])
+            t3 = time.perf_counter()
+            out["data_s"] += t2 - t1
+            out["step_s"] += t3 - t2
+            gstep += 1
+            out["steps"] += 1
+            if gstep % cfg.log_interval == 0:
+                log.info("epoch %d step %d: total=%.4f %s (%.2fs/it)", epoch, gstep, total,
+                         " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()
+                                  if k != "total"), (time.perf_counter() - t0) / (s + 1))
+        out["epochs"] += 1
+        out["last"] = {k: float(v) for k, v in metrics.items()}
+        at_eval = (epoch + 1) % cfg.eval_interval == 0
+        val = evaluate() if at_eval and evaluate is not None else None
+        if val is not None:
+            log.info("epoch %d eval: %s", epoch, val)
+            out["eval"] = val
+        if save is not None and (at_eval or (save_interval and (epoch + 1) % save_interval == 0)):
+            save(gstep, val)
+    if save is not None:
+        save(gstep, None)
+    out["gstep"] = gstep
+    return out
+
+
+def device_batch(batch, device, fields=("grids", "grid_sizes", "gt_boxes", "gt_mask")):
+    """A host batch's arrays ``fields`` as tensors on ``device``."""
+    return tuple(torch.as_tensor(getattr(batch, f), device=device) for f in fields)
+
+
+def synthetic_batch(batch: int, shape, max_gt: int, box_dim: int, input_dim: int = 4):
+    """The JAX FCOS trainer's benchmark batch (``benchmark_train_step``):
+    uniform grids and ``max_gt`` boxes a scene from ``default_rng(0)``, the
+    boxes' low corners in [0, 0.6 m) and extents in [0.1 m, 0.35 m) for m
+    the grid's smallest side, clipped to m, with a uniform angle appended
+    for ``box_dim = 7``. Returns (grids, grid sizes, boxes, mask) as numpy."""
+    rng = np.random.default_rng(0)
+    grids = rng.uniform(0, 1, (batch, *shape, input_dim)).astype(np.float32)
+    sizes = np.tile(np.asarray([[float(s) for s in shape]], np.float32), (batch, 1))
+    m = min(shape)
+    lo = rng.uniform(0, m * 0.6, (batch, max_gt, 3))
+    ext = rng.uniform(m * 0.1, m * 0.35, (batch, max_gt, 3))
+    boxes = np.concatenate([lo, np.minimum(lo + ext, m)], -1)
+    if box_dim == 7:
+        boxes = np.concatenate([boxes, rng.uniform(-np.pi / 2, np.pi / 2, (batch, max_gt, 1))],
+                               -1)
+    return grids, sizes, boxes.astype(np.float32), np.ones((batch, max_gt), bool)

@@ -1,20 +1,26 @@
-"""NeRF-RCNN inference and eval (PyTorch counterpart of
-``instance_nerf_tpu.train.rcnn_trainer``; the training methods come with
-slice 5).
+"""NeRF-RCNN training, inference and eval (PyTorch counterpart of
+``instance_nerf_tpu.train.rcnn_trainer``).
 
 ``RCNNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
-``eval`` scores the detections and masks of a ``SegmentationDataset``
-(box and mask mAP / AR at IoU 0.25 and 0.5).
+``train_loop`` trains the backbone (grafted from an FCOS or RPN checkpoint
+with ``rpn_ckpt``) and the RoI heads on a ``SegmentationDataset``'s
+precomputed rois, one step per dispatch; ``freeze_backbone`` computes the
+features outside autograd and leaves the backbone out of the optimizer.
+``eval`` scores the detections and masks (box and mask mAP / AR at IoU 0.25
+and 0.5). OBB RCNN, ``steps_per_call > 1`` and the device-resident store
+``device_data`` come with slice 5b.
 """
 from __future__ import annotations
 
+import logging
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import rcnn_params_from_jax, unflatten_npz
@@ -25,29 +31,85 @@ from instance_nerf_tpu_torch.models.rcnn import (
     ConvTranspose3d,
     Detections,
     NeRF_RCNN,
+    _pack,
+    fastrcnn_loss,
     maskrcnn_inference,
+    maskrcnn_loss,
     paste_detections,
     postprocess_detections,
+    select_training_samples,
 )
 from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm, Linear
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
+from instance_nerf_tpu_torch.ops.nms import no_stage
+from instance_nerf_tpu_torch.parallel.train_step import TrainState, apply_step, make_optimizer
+from instance_nerf_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    load_params,
+    load_params_into,
+)
+from instance_nerf_tpu_torch.train.loop import device_batch, train_epochs
+from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
+from instance_nerf_tpu_torch.train.train_utils import partition_optimizer
+
+log = logging.getLogger("rcnn_trainer")
+
+# the fields of an ``RCNNBatch`` a train step takes, in its argument order
+BATCH_FIELDS = ("grids", "grid_sizes", "rois", "roi_mask", "gt_boxes", "gt_labels",
+                "gt_mask", "gt_voxel_masks")
 
 
 @dataclass
 class RCNNConfig:
-    rcnn_ckpt: str = ""  # .npz of a flax params tree ("/"-joined keys)
+    """The JAX package's ``RCNNConfig``; ``steps_per_call > 1`` and
+    ``device_data`` raise in ``train_loop`` (slice 5b)."""
+
+    dataset_root: str = ""
+    dataset_split: str = ""
+    save_path: str = ""
+    # an FCOS or RPN checkpoint (directory of the port, or a flax params
+    # .npz) whose backbone is grafted in
+    rpn_ckpt: str = ""
+    # a checkpoint directory of the port, or a flax params tree as .npz
+    # ("/"-joined keys)
+    rcnn_ckpt: str = ""
     backbone_type: str = "vgg_EF"
     resolution: int = 160
     num_classes: int = 11  # 10 fg + background
     # compute dtype (params stay f32); bf16 on the card by default
     dtype: str = "bfloat16"
     bbox_type: str = "aabb"
+    batch_size: int = 4
+    num_epochs: int = 200
+    lr: float = 1e-3
+    weight_decay: float = 1e-2
+    clip_grad_norm: float = 0.1
+    log_interval: int = 20
+    eval_interval: int = 5
+    keep_checkpoints: int = 2
+    # the reference's recipe trains the backbone; True computes the features
+    # outside autograd and freezes the backbone's parameters
+    freeze_backbone: bool = False
+    # RoI heads
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
+    fg_iou_thresh: float = 0.25
+    bg_iou_thresh: float = 0.25
     box_score_thresh: float = 0.0
     box_nms_thresh: float = 0.15
     detections_per_img: int = 25
+    max_rois: int = 256
     eval_rois: int = 20  # inference.sh: rois[:20]
+    max_gt: int = 32
     mask_paste_threshold: float = 0.5
     seed: int = 0
+    # hold decoded scenes (grid + per-instance voxel masks) in host RAM
+    cache_scenes: bool = False
+    steps_per_call: int = 1
+    device_data: bool = False
+    # checkpoint cadence in epochs between evals (0: at evals and the end)
+    save_interval: int = 0
+    # recompute the backbone's forward in the backward
+    remat: bool = False
 
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -91,12 +153,81 @@ def init_rcnn_params(model: NeRF_RCNN, seed: int) -> None:
             mod.bias.zero_()
 
 
+def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid, gt_boxes,
+                gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=no_stage):
+    """One RoI-head forward and loss (the JAX package's ``make_rcnn_step_fn``
+    body): sample the rois (``uniforms`` (N, 2, P + K) per scene, else drawn
+    from ``generator``), pack the positives first (stably) into
+    ``mask_slots`` mask slots, classification + box + mask losses (the mask
+    loss a mean over scenes). Returns (total, metrics with the train-time
+    classification accuracy over the sampled rois and the positives)."""
+    del grid_sizes  # the rois are in grid coordinates already
+    with stage("loss"):
+        s = select_training_samples(
+            rois, roi_valid, gt_boxes, gt_labels, gt_mask,
+            batch_size_per_image=cfg.batch_size_per_image,
+            positive_fraction=cfg.positive_fraction, fg_iou_thresh=cfg.fg_iou_thresh,
+            bg_iou_thresh=cfg.bg_iou_thresh, uniforms=uniforms, generator=generator)
+        order, mpos = _pack(s.pos, mask_slots)
+        mrois = torch.gather(s.rois, 1, order[..., None].expand(*order.shape, 6))
+        mlab, mmidx = (torch.gather(t, 1, order) for t in (s.labels, s.matched_gt_idx))
+    with stage("forward"):
+        if cfg.freeze_backbone:
+            with torch.no_grad():
+                feats = model.features(grids)
+        elif cfg.remat:
+            feats = checkpoint(model.features, grids, use_reentrant=False)
+        else:
+            feats = model.features(grids)
+        logits, deltas = model.box_forward(feats, s.rois)
+        mlogits = model.mask_forward(feats, mrois)
+    with stage("loss"):
+        cls_loss, box_loss = fastrcnn_loss(logits, deltas, s.labels, s.reg_targets, s.valid)
+        mloss = torch.stack([
+            maskrcnn_loss(mlogits[i], mrois[i], gt_vmasks[i], mlab[i], mmidx[i], mpos[i])
+            for i in range(grids.shape[0])]).mean()
+        total = cls_loss + box_loss + mloss
+        correct = logits.argmax(dim=-1) == s.labels
+        acc = (correct & s.valid).sum() / s.valid.sum().clamp_min(1)
+        fg_acc = (correct & s.pos).sum() / s.pos.sum().clamp_min(1)
+    return total, {"loss_classifier": cls_loss, "loss_box_reg": box_loss, "loss_mask": mloss,
+                   "num_pos": s.pos.sum(), "cls_acc": acc, "fg_cls_acc": fg_acc}
+
+
+def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage):
+    """``step(state, grids, grid_sizes, rois, roi_valid, gt_boxes, gt_labels,
+    gt_mask, gt_vmasks, uniforms=None, generator=None) -> (state,
+    metrics)``: ``rcnn_losses``, backward, the clipped AdamW."""
+
+    def step(state: TrainState, *batch, uniforms=None, generator=None):
+        model.zero_grad(set_to_none=True)
+        total, metrics = rcnn_losses(model, cfg, mask_slots, *batch, uniforms=uniforms,
+                                     generator=generator, stage=stage)
+        return apply_step(state, total, metrics, stage)
+
+    return step
+
+
+def graft_backbone(model: NeRF_RCNN, src: str) -> None:
+    """Copy the backbone of an FCOS or RPN checkpoint (a directory of the
+    port, or a flax params ``.npz``) into ``model``."""
+    if os.path.isdir(src):
+        params = load_params(src, map_location="cpu")
+    else:
+        with np.load(src) as z:
+            tree = unflatten_npz({k: z[k] for k in z.files})
+        tree = tree.get("params", tree)
+        params = rcnn_params_from_jax({"backbone": tree["backbone"]})
+    bb = {k[len("backbone."):]: v for k, v in params.items() if k.startswith("backbone.")}
+    model.backbone.load_state_dict(bb, strict=True)
+
+
 class RCNNTrainer:
     def __init__(self, cfg: RCNNConfig | None = None, device="cuda"):
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
         if cfg.bbox_type != "aabb":
-            raise NotImplementedError("OBB RCNN comes with slice 5 (ROADMAP queue A)")
+            raise NotImplementedError("OBB RCNN comes with slice 5b (ROADMAP queue A)")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -110,19 +241,38 @@ class RCNNTrainer:
                                dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
-        # ``predict_scene``'s stages: profiler ranges ``rcnn.<name>``
+        self.state: TrainState | None = None
+        self.ckpt = (CheckpointManager(cfg.save_path, keep=cfg.keep_checkpoints,
+                                       best_metric="mask_mAP_25") if cfg.save_path else None)
+        self.mask_slots = int(cfg.batch_size_per_image * cfg.positive_fraction)
+        # the sampler's draws
+        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # ``predict_scene``'s stages: profiler ranges ``rcnn.<name>``; a train
+        # step's: ``rcnn_train.<name>``
         self._stage = Stages("rcnn")
+        self._train_stage = Stages("rcnn_train")
 
     # -- state ----------------------------------------------------------------
 
-    def init_state(self):
-        """Seeded random init, or ``cfg.rcnn_ckpt`` (a flax params ``.npz``)."""
-        if self.cfg.rcnn_ckpt:
-            self.load_jax_params(self.cfg.rcnn_ckpt)
-            return
-        init_rcnn_params(self.model, self.cfg.seed)
+    def init_state(self, total_steps: int | None = None):
+        """Seeded random init, the backbone grafted from ``cfg.rpn_ckpt``,
+        then ``cfg.rcnn_ckpt``'s params over it where given, and the optimizer
+        (one-cycle over ``total_steps``, else a constant lr; without the
+        backbone when ``freeze_backbone``)."""
+        cfg = self.cfg
+        init_rcnn_params(self.model, cfg.seed)
+        if cfg.rpn_ckpt:
+            graft_backbone(self.model, cfg.rpn_ckpt)
+            log.info("grafted the backbone of %s", cfg.rpn_ckpt)
+        if cfg.rcnn_ckpt:
+            load_params_into(self.model, cfg.rcnn_ckpt, rcnn_params_from_jax)
         self.model.to(self.device)
         self.params_loaded = True
+        trained, _ = partition_optimizer(
+            self.model, ("backbone",) if cfg.freeze_backbone else ())
+        tx = make_optimizer(trained, lr=cfg.lr, weight_decay=cfg.weight_decay,
+                            clip_grad_norm=cfg.clip_grad_norm, total_steps=total_steps)
+        self.state = TrainState(self.model, tx)
 
     def load_jax_params(self, npz_or_tree):
         """Load a flax ``NeRF_RCNN`` params tree (nested dict of arrays, or
@@ -134,6 +284,96 @@ class RCNNTrainer:
         self.model.load_state_dict(rcnn_params_from_jax(tree), strict=True)
         self.model.to(self.device)
         self.params_loaded = True
+
+    # -- train ----------------------------------------------------------------
+
+    def train_step_fn(self, stage=None):
+        return make_rcnn_step_fn(self.model, self.cfg, self.mask_slots,
+                                 stage=stage or self._train_stage)
+
+    def train_loop(self) -> dict:
+        """Train on the train split's precomputed rois, evaluating on the val
+        split every ``eval_interval`` epochs; returns the loop's summary
+        (``train/loop.py:train_epochs``)."""
+        cfg = self.cfg
+        if cfg.steps_per_call > 1:
+            raise NotImplementedError("steps_per_call > 1 comes with slice 5b "
+                                      "(ROADMAP queue A)")
+        if cfg.device_data:
+            raise NotImplementedError("device_data comes with slice 5b (ROADMAP queue A)")
+        split = cfg.dataset_split or None
+        ds = SegmentationDataset("train", cfg.dataset_root, split, cache=cfg.cache_scenes)
+        val = SegmentationDataset("val", cfg.dataset_root, split, cache=cfg.cache_scenes)
+        self.init_state(total_steps=cfg.num_epochs * max(1, len(ds) // cfg.batch_size))
+        step_fn = self.train_step_fn()
+
+        def load(idx):
+            return ds.batch(idx, (cfg.resolution,) * 3, max_gt=cfg.max_gt,
+                            max_rois=cfg.max_rois)
+
+        def step(batch):
+            self.state, metrics = step_fn(self.state, *device_batch(batch, self.device,
+                                                                    BATCH_FIELDS),
+                                          generator=self.gen)
+            return metrics
+
+        def save(gstep, metrics):
+            self.ckpt.save(gstep, self.state.state_dict(), config=asdict(cfg), metrics=metrics)
+
+        return train_epochs(cfg, len(ds), 0, load, step, evaluate=lambda: self.eval(val),
+                            save=save if self.ckpt else None, log=log)
+
+    def _card_train_batch(self, batch, shape):
+        """The JAX trainer's synthetic batch for ``benchmark_train_step``:
+        uniform grids, ``max_rois`` random rois and ``max_gt`` random gt boxes
+        a scene from ``default_rng(0)``, random labels, and voxel masks drawn
+        on the card (10% set)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("timing the card needs device='cuda'")
+        cfg, dev = self.cfg, self.device
+        rng = np.random.default_rng(0)
+        m = min(shape)
+        grids = rng.uniform(0, 1, (batch, *shape, 4)).astype(np.float32)
+        rois = np.stack([_random_rois(rng, m, cfg.max_rois) for _ in range(batch)])
+        gt = np.stack([_random_rois(rng, m, cfg.max_gt) for _ in range(batch)])
+        labels = rng.integers(1, cfg.num_classes, (batch, cfg.max_gt))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        vmasks = (torch.rand((batch, cfg.max_gt, *shape), generator=gen, device=dev)
+                  < 0.1).to(torch.uint8)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        sizes = np.tile(np.asarray([[float(x) for x in shape]], np.float32), (batch, 1))
+        return (t(grids), t(sizes), t(rois), torch.ones((batch, cfg.max_rois), dtype=torch.bool,
+                                                        device=dev),
+                t(gt), t(labels), torch.ones((batch, cfg.max_gt), dtype=torch.bool, device=dev),
+                vmasks)
+
+    def _card_train_step(self, batch, shape):
+        """One train step on the card's synthetic batch, as a closure that
+        returns the step's metrics."""
+        if self.state is None:
+            self.init_state()
+        args = self._card_train_batch(batch, shape)
+        step_fn = self.train_step_fn()
+
+        def run():
+            self.state, metrics = step_fn(self.state, *args, generator=self.gen)
+            return metrics
+
+        return run
+
+    def benchmark_train_step(self, reps=18, shape=(160, 160, 160), batch=4, warmup=3):
+        """Train steps on the synthetic batch timed with CUDA events
+        (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
+        warmed steps, scenes/s, peak device memory, every step's losses."""
+        return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
+                               reps=reps, warmup=warmup)
+
+    def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
+        """Where a train step's time goes (``train/timing.py:profile_ms``), by
+        span: loss (sampling, packing and the losses), forward (backbone and
+        heads), backward, optimizer."""
+        return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
+                          reps=reps, warmup=warmup, top=top, watch=())
 
     # -- inference ------------------------------------------------------------
 

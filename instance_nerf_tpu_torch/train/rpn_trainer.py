@@ -1,9 +1,11 @@
-"""Anchor NeRF-RPN proposal inference and eval (PyTorch counterpart of
-``instance_nerf_tpu.train.rpn_trainer``; the training methods come with
-slice 5).
+"""Anchor NeRF-RPN training, proposal inference and eval (PyTorch
+counterpart of ``instance_nerf_tpu.train.rpn_trainer``).
 
 ``RPNTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
+``train_loop`` trains on the augmented train split (``train/loop.py``),
+evaluating and checkpointing as the JAX trainer does; the sampler's draws
+come from a ``torch.Generator`` on the device seeded with ``cfg.seed``.
 ``predict_scene`` pads a scene's grid to multiples of 32, runs the
 backbone and the RPN head, masks the anchors of the padding and filters
 the proposals: with ``rotated_bbox`` the per-level NMS computes the dense
@@ -13,9 +15,10 @@ features: the files the RCNN's ``SegmentationDataset`` reads as ``rois/``.
 """
 from __future__ import annotations
 
+import logging
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
@@ -34,31 +37,63 @@ from instance_nerf_tpu_torch.models.rpn import (
     anchor_padding_mask,
     filter_proposals,
 )
+from instance_nerf_tpu_torch.parallel.train_step import (
+    TrainState,
+    make_optimizer,
+    make_rpn_train_step,
+)
+from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager, load_params_into
+from instance_nerf_tpu_torch.train.loop import device_batch, synthetic_batch, train_epochs
 from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
+from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
+
+log = logging.getLogger("rpn_trainer")
 
 
 @dataclass
 class RPNConfig:
-    """The inference and data fields of the JAX package's ``RPNConfig``."""
+    """The JAX package's ``RPNConfig``."""
 
     features_path: str = ""
     boxes_path: str = ""
     dataset_split: str = ""
     save_path: str = ""
-    checkpoint: str = ""  # .npz of a flax params tree ("/"-joined keys)
-    normalize_density: bool = True
+    # a checkpoint directory of the port, or a flax params tree as .npz
+    # ("/"-joined keys)
+    checkpoint: str = ""
     backbone_type: str = "vgg_EF"
     resolution: int = 160
+    normalize_density: bool = True
     rotated_bbox: bool = False
+    batch_size: int = 4
+    num_epochs: int = 160
+    lr: float = 3e-4
+    weight_decay: float = 1e-3
+    clip_grad_norm: float = 0.1
+    log_interval: int = 30
+    eval_interval: int = 4
+    keep_checkpoints: int = 2
     # compute dtype (params stay f32); bf16 on the card by default
     dtype: str = "bfloat16"
+    # the rpn's own (nerf_rpn.py:70-86 defaults)
     conv_depth: int = 4
+    fg_iou_thresh: float = 0.7
+    bg_iou_thresh: float = 0.3
+    batch_size_per_mesh: int = 256
+    positive_fraction: float = 0.5
     pre_nms_top_n: int = 1000
     post_nms_top_n: int = 1000
     nms_thresh: float = 0.7
     score_thresh: float = 0.0
+    reg_loss_type: str = "smooth_l1"
+    proj2d_loss_weight: float = 1.0
+    # augmentation (train split only)
+    flip_prob: float = 0.5
+    rotate_prob: float = 0.5
+    rot_scale_prob: float = 0.0
+    max_gt: int = 64
     fpn_strides: tuple = (4, 8, 16, 32)
+    resume: bool = False
     seed: int = 0
 
 
@@ -90,17 +125,20 @@ def padded_grid(grid, device):
 
 
 def rpn_dataset(cfg, mode: str, preload: bool = False) -> RPNDataset:
-    """The eval split ``mode`` of ``cfg``'s dataset (all scenes without a
-    split file), unaugmented as the JAX trainers build it. The train split,
-    which they augment, comes with training in slice 5."""
-    if mode == "train":
-        raise NotImplementedError("the augmented train split comes with slice 5 "
-                                  "(detector training)")
+    """The split ``mode`` of ``cfg``'s dataset (all scenes without a split
+    file), as the JAX trainers build it: the train split augmented with the
+    config's flip, rot90 and rotate-and-scale probabilities, drawn from the
+    dataset's ``default_rng(seed)``."""
     scene_list = read_split(cfg.dataset_split, mode) if cfg.dataset_split else None
+    aug = mode == "train"
     return RPNDataset(
         features_path=cfg.features_path, boxes_path=cfg.boxes_path or None,
-        scene_list=scene_list, normalize_density=cfg.normalize_density, preload=preload,
-        seed=cfg.seed)
+        scene_list=scene_list, normalize_density=cfg.normalize_density,
+        flip_prob=cfg.flip_prob if aug else 0.0,
+        rotate_prob=cfg.rotate_prob if aug else 0.0,
+        rot_scale_prob=cfg.rot_scale_prob if aug else 0.0,
+        preload=preload, seed=cfg.seed)
+
 
 
 def proposal_metrics(proposals, scores, gts, ap_top_n=None) -> dict:
@@ -167,22 +205,35 @@ class RPNTrainer:
             fpn_strides=cfg.fpn_strides, dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
-        # ``predict_scene``'s stages: profiler ranges ``rpn.<name>``
+        self.state: TrainState | None = None
+        self.ckpt = (CheckpointManager(cfg.save_path, keep=cfg.keep_checkpoints,
+                                       best_metric="recall_50") if cfg.save_path else None)
+        # the sampler's draws
+        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # ``predict_scene``'s stages: profiler ranges ``rpn.<name>``; a train
+        # step's: ``rpn_train.<name>``
         self._stage = Stages("rpn")
+        self._train_stage = Stages("rpn_train")
 
     def make_dataset(self, mode: str) -> RPNDataset:
         return rpn_dataset(self.cfg, mode)
 
     # -- state ----------------------------------------------------------------
 
-    def init_state(self):
-        """Seeded random init, or ``cfg.checkpoint`` (a flax params ``.npz``)."""
-        if self.cfg.checkpoint:
-            self.load_jax_params(self.cfg.checkpoint)
-            return
-        init_rpn_params(self.model, self.cfg.seed)
+    def init_state(self, total_steps: int | None = None):
+        """Seeded random init, or ``cfg.checkpoint`` (its params), and the
+        optimizer (one-cycle over ``total_steps``, else a constant lr)."""
+        cfg = self.cfg
+        if cfg.checkpoint:
+            load_params_into(self.model, cfg.checkpoint, rpn_params_from_jax)
+        else:
+            init_rpn_params(self.model, cfg.seed)
         self.model.to(self.device)
         self.params_loaded = True
+        tx = make_optimizer(self.model.named_parameters(), lr=cfg.lr,
+                            weight_decay=cfg.weight_decay,
+                            clip_grad_norm=cfg.clip_grad_norm, total_steps=total_steps)
+        self.state = TrainState(self.model, tx)
 
     def load_jax_params(self, npz_or_tree):
         """Load a flax ``NeRFRegionProposalNetwork`` params tree (nested dict
@@ -195,6 +246,89 @@ class RPNTrainer:
         self.model.load_state_dict(rpn_params_from_jax(tree), strict=True)
         self.model.to(self.device)
         self.params_loaded = True
+
+    # -- train ----------------------------------------------------------------
+
+    def train_step_fn(self, stage=None):
+        return make_rpn_train_step(self.model, self.cfg,
+                                   stage=stage or self._train_stage)
+
+    def train_loop(self) -> dict:
+        """Train ``num_epochs`` epochs on the augmented train split (resuming
+        from ``save_path``'s latest checkpoint with ``resume``); returns the
+        loop's summary (``train/loop.py:train_epochs``)."""
+        cfg = self.cfg
+        ds = self.make_dataset("train")
+        val = self.make_dataset("val") if cfg.dataset_split else None
+        steps_per_epoch = max(1, len(ds) // cfg.batch_size)
+        self.init_state(total_steps=steps_per_epoch * cfg.num_epochs)
+        start_epoch = 0
+        if cfg.resume and self.ckpt and self.ckpt.latest_step() is not None:
+            state, meta = self.ckpt.restore(self.state.state_dict(), map_location=self.device)
+            self.state.load_state_dict(state)
+            start_epoch = min(meta["step"] // steps_per_epoch, cfg.num_epochs)
+            log.info("resumed at step %s (epoch %d)", meta["step"], start_epoch)
+        step_fn = self.train_step_fn()
+        pad_shape = (cfg.resolution,) * 3
+        box_dim = 7 if cfg.rotated_bbox else 6
+
+        def load(idx):
+            return ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim, augment=True)
+
+        def step(batch):
+            self.state, losses = step_fn(self.state, *device_batch(batch, self.device),
+                                         generator=self.gen)
+            return losses
+
+        def save(gstep, metrics):
+            self.ckpt.save(gstep, self.state.state_dict(), config=asdict(cfg), metrics=metrics)
+
+        return train_epochs(cfg, len(ds), start_epoch, load, step,
+                            evaluate=(lambda: self.eval(val)) if val else None,
+                            save=save if self.ckpt else None, log=log)
+
+    def _card_train_batch(self, batch, shape):
+        """The synthetic train batch (``train/loop.py:synthetic_batch``) of
+        ``batch`` scenes at ``shape``, zero-padded to multiples of 32, on the
+        card."""
+        if self.device.type != "cuda":
+            raise RuntimeError("timing the card needs device='cuda'")
+        cfg = self.cfg
+        grids, sizes, boxes, mask = synthetic_batch(batch, shape, cfg.max_gt,
+                                                    7 if cfg.rotated_bbox else 6)
+        padded = np.zeros((batch, *(pad_to_32(s) for s in shape), 4), np.float32)
+        padded[:, :shape[0], :shape[1], :shape[2]] = grids
+        return tuple(torch.as_tensor(a, device=self.device)
+                     for a in (padded, sizes, boxes, mask))
+
+    def _card_train_step(self, batch, shape):
+        """One train step on the card's synthetic batch, as a closure that
+        returns the step's metrics."""
+        if self.state is None:
+            self.init_state()
+        args = self._card_train_batch(batch, shape)
+        step_fn = self.train_step_fn()
+
+        def run():
+            self.state, metrics = step_fn(self.state, *args, generator=self.gen)
+            return metrics
+
+        return run
+
+    def benchmark_train_step(self, reps=18, shape=(200, 200, 130), batch=4, warmup=3):
+        """Train steps on the synthetic batch at ``shape`` (padded to 224 x
+        224 x 160 by default) timed with CUDA events
+        (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
+        warmed steps, scenes/s, peak device memory, every step's losses."""
+        return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
+                               reps=reps, warmup=warmup)
+
+    def profile_train(self, reps=5, shape=(200, 200, 130), batch=4, warmup=2, top=12):
+        """Where a train step's time goes (``train/timing.py:profile_ms``), by
+        span: forward, loss (targets and sampling included), backward,
+        optimizer."""
+        return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
+                          reps=reps, warmup=warmup, top=top, watch=())
 
     # -- inference ------------------------------------------------------------
 

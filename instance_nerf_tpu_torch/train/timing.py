@@ -71,6 +71,17 @@ def benchmark_ms(run, device, reps=10, warmup=2) -> dict:
     }
 
 
+def benchmark_steps(step, device, batch: int, reps=18, warmup=3) -> dict:
+    """``benchmark_ms`` of ``step()``, one train step returning its metrics,
+    with the scenes per second of a ``batch``-scene step and the losses of
+    every step run (warm-up first)."""
+    seen = []
+    out = benchmark_ms(lambda: seen.append(step()), device, reps=reps, warmup=warmup)
+    out["scenes_per_s"] = batch / out["median_ms"] * 1e3
+    out["losses"] = [{k: float(v) for k, v in m.items()} for m in seen]
+    return out
+
+
 def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12,
                watch=("nms_sweep",)) -> dict:
     """Where ``run()``'s time goes, in ms per run: each stage's spans on the

@@ -227,3 +227,64 @@ def test_metrics_match_jax(seed):
                                   JM.box_iou_3d_np(props[0], gts[0]))
     np.testing.assert_array_equal(TM.mask_iou_3d_np(pmasks[0], gmasks[0]),
                                   JM.mask_iou_3d_np(pmasks[0], gmasks[0]))
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_train_split_batches_match_jax(roots, kind):
+    """The trainers' augmented train split (``rpn_dataset(cfg, "train")``
+    against the JAX ``RPNTrainer.make_dataset``): the same batches, drawn
+    in turn from the dataset's ``default_rng(seed)``."""
+    from instance_nerf_tpu.train.rpn_trainer import RPNConfig as JConfig
+    from instance_nerf_tpu.train.rpn_trainer import RPNTrainer as JTrainer
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, rpn_dataset
+
+    root = roots[kind][0]
+    rotated = KINDS[kind]["rotated"]
+    kw = dict(features_path=os.path.join(root, "features"),
+              boxes_path=os.path.join(root, "boxes_obb" if rotated else "metadata"),
+              dataset_split=os.path.join(root, "dataset_split.json"), rotated_bbox=rotated,
+              rot_scale_prob=0.5, seed=4)
+    jds = JTrainer(JConfig(**kw)).make_dataset("train")
+    tds = rpn_dataset(RPNConfig(**kw), "train")
+    assert tds.scenes == jds.scenes and (tds.flip_prob, tds.rot_scale_prob) == (0.5, 0.5)
+    box_dim = 7 if rotated else 6
+    for idx in ([0, 1], [1, 0], [1, 1]):
+        jb = jds.batch(idx, (32, 32, 32), max_gt=8, box_dim=box_dim, augment=True)
+        tb = tds.batch(idx, (32, 32, 32), max_gt=8, box_dim=box_dim, augment=True)
+        _grid_close(tb.grids, jb.grids)
+        for f in ("grid_sizes", "gt_boxes", "gt_mask"):
+            np.testing.assert_array_equal(getattr(tb, f), getattr(jb, f))
+    assert rpn_dataset(RPNConfig(**kw), "val").flip_prob == 0.0
+
+
+@pytest.mark.parametrize("obb", [False, True], ids=["aabb", "obb"])
+def test_device_augment_matches_jax(obb):
+    """The FCOS trainer's on-device rot90 + flips of one padded scene, with
+    the JAX key's three uniforms passed in."""
+    import jax
+    import jax.numpy as jnp
+
+    from instance_nerf_tpu.train.fcos_trainer import device_augment as j_aug
+    from instance_nerf_tpu_torch.train.fcos_trainer import device_augment as t_aug
+
+    rng = np.random.default_rng(6)
+    g = np.zeros((16, 16, 12, 4), np.float32)
+    g[:14, :11, :10] = rng.uniform(size=(14, 11, 10, 4))
+    size = np.array([14.0, 11.0, 10.0], np.float32)
+    lo = rng.uniform(0, 6, (3, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(1, 4, (3, 3))], 1)
+    if obb:
+        boxes = np.concatenate([(boxes[:, :3] + boxes[:, 3:]) / 2, boxes[:, 3:] - boxes[:, :3],
+                                rng.uniform(-1, 1, (3, 1))], 1)
+    boxes = boxes.astype(np.float32)
+    seen = set()
+    for seed in range(12):
+        key = jax.random.key(seed)
+        draws = np.array([float(jax.random.uniform(k)) for k in jax.random.split(key, 3)])
+        seen.add(tuple(draws < 0.5))
+        want = j_aug(key, jnp.asarray(g), jnp.asarray(size), jnp.asarray(boxes), 0.5, 0.5, obb)
+        got = t_aug(torch.from_numpy(g), torch.from_numpy(size), torch.from_numpy(boxes),
+                    0.5, 0.5, obb, torch.from_numpy(draws))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6)
+    assert len(seen) >= 6  # most combinations of rot90 and the two flips

@@ -50,7 +50,10 @@ def test_port_has_every_slice_module():
               "train.ngp_trainer",
               # slice 4: FCOS proposal inference and the eval modes
               "models.fcos", "train.fcos_trainer", "cli.run_fcos", "data.datasets",
-              "data.augment", "data.synthetic", "eval.metrics"):
+              "data.augment", "data.synthetic", "eval.metrics",
+              # slice 5a: detector training
+              "ops.sampling", "ops.projection", "parallel.train_step",
+              "train.checkpoints", "train.train_utils", "train.loop"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -119,9 +122,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         FCOSTrainer(FCOSConfig(rotated_bbox=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         run_fcos.main(["--mode", "check_arch", "--rotated_bbox"])
-    for cli in (run_fcos, run_rpn, run_rcnn):  # the eval modes too
-        with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main(["--mode", "eval"])
+    for cli in (run_fcos, run_rpn, run_rcnn):  # the eval and train modes too
+        for mode in ("eval", "train"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(["--mode", mode])
 
 
 def test_nms_boxes_on_cpu_runs_plain_without_counting():
@@ -167,16 +171,42 @@ def test_coarse_occ_lookup_on_cpu_runs_plain_without_counting():
 
 
 def test_rpn_cli_modes_of_later_slices_raise():
-    """Training comes with slice 5: ``--mode train`` of every detector CLI
-    raises, naming it; the eval modes run (``tests/test_torch_eval.py``)."""
+    """``--mode train`` runs (``tests/test_torch_train_cli.py``); its options
+    of slice 5b raise, naming it: the ResNet and Swin backbones, OBB RCNN and
+    more than one step per dispatch."""
     from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
-    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
 
-    for cli in (run_rpn, run_fcos, run_rcnn):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            cli.main(["--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        FCOSTrainer(FCOSConfig(), device="cpu").train_loop()
+    for cli, argv in ((run_rpn, ["--backbone_type", "resnet"]),
+                      (run_fcos, ["--backbone_type", "swin_t"]),
+                      (run_fcos, ["--steps_per_call", "2"]),
+                      (run_rcnn, ["--bbox_type", "obb"]),
+                      (run_rcnn, ["--steps_per_call", "2"])):
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            cli.main(["--mode", "train", "--device", "cpu"] + argv)
+
+
+def test_train_modes_of_later_slices_raise():
+    """OBB RCNN, ``steps_per_call > 1`` and the device-resident store
+    ``device_data`` come with slice 5b, and the trainers say so."""
+    import torch as _torch
+
+    from instance_nerf_tpu_torch.models.rcnn import select_training_samples
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+    from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
+
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        RCNNTrainer(RCNNConfig(bbox_type="obb"), device="cpu")
+    for cfg in (FCOSConfig(steps_per_call=4), FCOSConfig(device_data=True)):
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            FCOSTrainer(cfg, device="cpu").train_loop()
+    for cfg in (RCNNConfig(steps_per_call=4), RCNNConfig(device_data=True)):
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            RCNNTrainer(cfg, device="cpu").train_loop()
+    box = _torch.tensor([[[0.0, 0, 0, 4, 4, 4]]])
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        select_training_samples(box, _torch.ones((1, 1), dtype=_torch.bool), box,
+                                _torch.ones((1, 1), dtype=_torch.int64),
+                                _torch.ones((1, 1), dtype=_torch.bool), box_dim=8)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
