@@ -101,11 +101,42 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 13. ``small_reference_field``: a small f32 field, card against the port's
    CPU run from the same weights, rays and draws: losses, gradients and
    params over rgb -> instance -> rgb.
+13a. ``field_cli`` (main path of slice 6): ``cli/run_instance_field`` on a
+   synthetic scene written to disk, at the JAX CLI's defaults with
+   ``--pallas_grad``: ``train`` (64 rgb steps, B3 launched on each),
+   ``train_instance`` from the scene's masks (only ``inst_*`` moves),
+   ``render`` (the PSNR of view 0 must rise over the untrained field's),
+   ``extract_features`` at 160^3 (shape and finite values), ``benchmark``;
+   then ``--preset tpu_fast --k_buckets auto`` (64 rgb steps, B3 launched
+   on each; its measured ladder sums to 1, no K above ``n_samples``), a
+   checkpoint restored bit-identical, and one tpu_fast rgb step on that
+   ladder whose B3 launch is held against the plain scatter (1e-5 of its
+   largest entry) and timed on its own index stream beside ``index_add_``.
+13b. ``slice_fleet`` (main path of slice 6's fleets): a B = 32 fleet of
+   synthetic scenes (14 views at 64^2) through ``cli/run_fleet`` at its
+   defaults with ``--pallas_grad``: 64 rgb steps with ONE B3 launch a step
+   for all scenes (a background save midway), one step's fleet table
+   gradient against the plain scatter (1e-5 of its largest entry), 32
+   instance steps (only ``inst_*`` moves, in every scene), save / restore
+   bit-identical (params, Adam moments and count, occupancy grids; one
+   save in the background while training goes on), ``--mode benchmark``
+   (aggregate rays/s, step ms, peak bytes, busy share, top kernels); B3
+   timed on the fleet step's own index stream beside ``index_add_``.
+13c. ``small_reference_fleet``: an f32 fleet of 3 scenes, card against the
+   port's CPU run from the same weights, rays and draws, rgb -> instance
+   -> rgb: losses 1e-5, every gradient 1e-5 of its max (the dense grid's,
+   rounded to bf16 by design, to one bf16 ulp), params 1e-5.
+13d. ``project_masks``: a 96^3 voxel instance grid and alpha grid projected
+   into 8 views at 128^2 on the card and on the CPU: the files equal.
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
    launches on its path, error, times (``ms``, ``device_ms``) and bound;
    B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
    ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...)
-   and their launches in the train loops' evals (``launches_train_loop``).
+   and their launches in the train loops' evals (``launches_train_loop``);
+   B3's its launches on the field CLI's and the fleet's paths
+   (``launches_field_cli``, ``launches_field_cli_fast``,
+   ``launches_fleet``) and the cases of the fleet step and the tpu_fast
+   CLI step (``fleet``, ``field_cli_fast``).
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -116,8 +147,10 @@ package beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1138,9 +1171,10 @@ class LaunchRecorder:
 
 def scatter_bound_ms(n, w, rows):
     """Least time for a scatter-add: the updates (4 B a float) and indices
-    (4 B) read once, the table zeroed and written once, at 3.35 TB/s (its
-    n * w adds at 67 TFLOP/s take far less)."""
-    byte_s = (n * w * 4 + n * 4 + 2 * rows * w * 4) / PEAK_BYTES_PER_S
+    (4 B) read once and the table, its output, written once, at 3.35 TB/s
+    (its n * w adds at 67 TFLOP/s take far less). Zeroing the table first
+    is the kernel's choice, not the function's work."""
+    byte_s = (n * w * 4 + n * 4 + rows * w * 4) / PEAK_BYTES_PER_S
     ops_s = n * w / PEAK_F32_OPS_PER_S
     return max(byte_s, ops_s) * 1e3, "bytes" if byte_s > ops_s else "operations"
 
@@ -1618,6 +1652,379 @@ def phase_small_reference_field():
         raise AssertionError(f"f32 card field disagrees with the CPU run: {report}")
 
 
+# the field CLI's scene and the fleet's: synthetic scenes written to disk
+FIELD_CLI_STEPS = {"rgb": 64, "instance": 32, "fast": 64}
+FIELD_CLI_FLAGS = []  # the JAX CLI's defaults
+FIELD_CLI_RESOLUTION = 160  # extract_features
+FLEET_B = 32
+FLEET_SCENE = dict(n_views=14, hw=(64, 64), n_blobs=2)
+FLEET_STEPS = {"rgb": 64, "instance": 32, "bench": 32}
+FLEET_FLAGS = []  # run_fleet's defaults
+FLEET_REF = dict(n_levels=2, table_size=2 ** 10, n_features=4, base_res=8, max_res=64,
+                 dense_res=4, dense_features=2, hidden=16, num_instances=4, n_rays=128,
+                 n_samples=16, k_occupied=6, occ_res=16, occ_coarse_res=8, dtype="float32",
+                 pallas_grad=True)
+PROJECT_GRID, PROJECT_VIEWS, PROJECT_HW = 96, 8, (128, 128)
+
+
+def _ckpt_params(path):
+    from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager
+
+    state, _ = CheckpointManager(path).restore_any(map_location="cpu")
+    return state["params"]
+
+
+def _moved(before, after):
+    import torch
+
+    return sorted(k for k in before if not torch.equal(before[k], after[k]))
+
+
+def _view_psnr(render_dir, scene) -> float:
+    from instance_nerf_tpu_torch.data.png import read_png
+
+    img = read_png(f"{render_dir}/rgb_000.png").astype(np.float32) / 255.0
+    return psnr(img, scene.images[0])
+
+
+def phase_field_cli(work):
+    """The field CLI's main path at the JAX CLI's defaults with
+    ``--pallas_grad``: train (B3 once a step), train_instance from masks
+    (only ``inst_*`` moves), render (the PSNR of view 0 rises), extract_features
+    at 160^3, benchmark; then ``--preset tpu_fast --k_buckets auto`` (B3
+    once a step, its ladder chosen after warm-up), a checkpoint restored
+    bit-identical, and one tpu_fast step's B3 launch on the chosen ladder
+    against the plain scatter, timed."""
+    import torch
+
+    from instance_nerf_tpu_torch.cli import run_instance_field as cli
+    from instance_nerf_tpu_torch.data.nerf_dataset import (
+        load_nerf_scene,
+        make_synthetic_nerf_scene,
+        write_nerf_scene,
+    )
+    from instance_nerf_tpu_torch.kernels import scatter_cuda
+
+    scene, _ = make_synthetic_nerf_scene(np.random.default_rng(0), device="cuda",
+                                         **FIELD_SCENE)
+    root = write_nerf_scene(f"{work}/field_scene", scene)
+    base = ["--scene", root, "--log_every", "0", "--pallas_grad"] + FIELD_CLI_FLAGS
+    out = {"scene": FIELD_SCENE}
+    t0 = time.perf_counter()
+    cli.main(["--mode", "render", "--save_path", f"{work}/render0"] + base)
+    psnr0 = _view_psnr(f"{work}/render0", scene)
+
+    # the main path: counts zeroed just before, read just after
+    zero_launches()
+    t1 = time.perf_counter()
+    m_rgb = cli.main(["--mode", "train", "--steps", str(FIELD_CLI_STEPS["rgb"]),
+                      "--save_path", f"{work}/field_rgb"] + base)
+    torch.cuda.synchronize()
+    out["train_rgb_s"] = time.perf_counter() - t1
+    out["launches_rgb"] = read_launches()
+    if out["launches_rgb"]["scatter_add"] != FIELD_CLI_STEPS["rgb"]:
+        raise AssertionError(f"field_cli: B3 launched {out['launches_rgb']} in "
+                             f"{FIELD_CLI_STEPS['rgb']} rgb steps")
+    zero_launches()
+    m_inst = cli.main(["--mode", "train_instance", "--steps", str(FIELD_CLI_STEPS["instance"]),
+                       "--masks_dir", f"{root}/masks", "--checkpoint", f"{work}/field_rgb",
+                       "--save_path", f"{work}/field_inst"] + base)
+    out["launches_instance"] = read_launches()
+    moved = _moved(_ckpt_params(f"{work}/field_rgb"), _ckpt_params(f"{work}/field_inst"))
+    if not moved or any(not k.startswith("inst_") for k in moved):
+        raise AssertionError(f"field_cli: the instance stage moved {moved}")
+    cli.main(["--mode", "render", "--checkpoint", f"{work}/field_inst", "--save_path",
+              f"{work}/render1"] + base)
+    psnr1 = _view_psnr(f"{work}/render1", scene)
+    if not psnr1 > psnr0:
+        raise AssertionError(f"field_cli: PSNR did not rise ({psnr0} -> {psnr1})")
+    inst_map = np.load(f"{work}/render1/instance_000.npy")
+    feats = cli.main(["--mode", "extract_features", "--checkpoint", f"{work}/field_inst",
+                      "--resolution", str(FIELD_CLI_RESOLUTION), "--out_features",
+                      f"{work}/feats.npz"] + base)
+    with np.load(f"{work}/feats.npz") as z:
+        grid = z["rgbsigma"]
+    if grid.shape != (FIELD_CLI_RESOLUTION,) * 3 + (4,) or not np.isfinite(grid).all():
+        raise AssertionError(f"field_cli: features {grid.shape}, finite "
+                             f"{np.isfinite(grid).all()}")
+    bench = cli.main(["--mode", "benchmark"] + base)
+    if not all(np.isfinite(v) for v in (*m_rgb.values(), *m_inst.values())):
+        raise AssertionError(f"field_cli: non-finite losses {m_rgb} {m_inst}")
+    out.update(losses_rgb=m_rgb, losses_instance=m_inst, moved_in_instance_stage=moved,
+               psnr_view0_before=psnr0, psnr_view0_after=psnr1,
+               instance_ids_view0=sorted(int(i) for i in np.unique(inst_map)),
+               features=feats["shape"], benchmark=bench)
+
+    # tpu_fast with the ladder measured after warm-up
+    fast = ["--preset", "tpu_fast", "--k_buckets", "auto"] + base
+    zero_launches()
+    m_fast = cli.main(["--mode", "train", "--steps", str(FIELD_CLI_STEPS["fast"]),
+                       "--save_path", f"{work}/field_fast"] + fast)
+    out["launches_fast"] = read_launches()
+    if out["launches_fast"]["scatter_add"] != FIELD_CLI_STEPS["fast"]:
+        raise AssertionError(f"field_cli: B3 launched {out['launches_fast']} in "
+                             f"{FIELD_CLI_STEPS['fast']} tpu_fast rgb steps")
+    ladder = [(float(f), int(k)) for f, k in
+              (p.split(":") for p in m_fast["k_buckets_auto"].split(","))]
+    args = cli.parse_with_provenance(fast)
+    if abs(sum(f for f, _ in ladder) - 1.0) > 1e-6 or any(
+            k > cli.make_config(args).n_samples for _, k in ladder):
+        raise AssertionError(f"field_cli: bad ladder {ladder}")
+    a, b = cli.make_trainer(args), cli.make_trainer(args)
+    cli.load_state(a, f"{work}/field_fast")
+    cli.save_state(a, f"{work}/field_fast2", args)
+    cli.load_state(b, f"{work}/field_fast2")
+    same = all(torch.equal(v, b.model.state_dict()[k]) for k, v in a.model.state_dict().items())
+    if not (same and torch.equal(a.occ.grid, b.occ.grid)):
+        raise AssertionError("field_cli: a checkpoint did not restore bit-identical")
+    # one tpu_fast rgb step on the chosen ladder: its B3 launch against the plain scatter
+    a.set_sampling(k_buckets=tuple(ladder))
+    sc = load_nerf_scene(root, args.transforms, downscale=args.downscale)
+    o, d, rgb, inst = a._batch(sc, torch.as_tensor(sc.poses, device="cuda"))
+    with LaunchRecorder() as rec:
+        _, grads = a.loss_and_grads("rgb", o, d, rgb, inst)
+    idx, upd, n_levels, trailing, rows, kout = rec.calls[0]
+    g = grads["brick_table"].reshape(kout.shape)
+    plain = scatter_cuda.level_scatter_add_plain(idx, upd, n_levels, trailing, rows)
+    g_err, g_scale = float((g - plain).abs().max()), float(plain.abs().max())
+    if len(rec.calls) != 1 or not torch.equal(g, kout) or g_err > 1e-5 * g_scale:
+        raise AssertionError(f"field_cli: tpu_fast table gradient differs from the plain "
+                             f"scatter by {g_err} (largest {g_scale}; {len(rec.calls)} launches)")
+    del grads, g, plain
+    out["b3_fast_step"] = check_scatter("field_cli_fast_step", idx, upd, rows, n_levels,
+                                        trailing, mag_rtol=1e-5, timed=True)
+    out.update(fast_table_grad_vs_plain_max_abs_err=g_err, fast_table_grad_max_abs=g_scale)
+    del idx, upd, kout, rec
+    bench_fast = cli.main(["--mode", "benchmark"] + fast)
+    out.update(losses_fast=m_fast, ladder=ladder, benchmark_fast=bench_fast,
+               checkpoint_bit_identical=True, phase_s=time.perf_counter() - t0)
+    emit({"phase": "field_cli", **out})
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_scenes(work):
+    """``FLEET_B`` synthetic scenes from as many seeds, written to disk."""
+    from instance_nerf_tpu_torch.data.nerf_dataset import (
+        make_synthetic_nerf_scene,
+        write_nerf_scene,
+    )
+
+    roots, scenes = [], []
+    for i in range(FLEET_B):
+        sc, _ = make_synthetic_nerf_scene(np.random.default_rng(100 + i), device="cuda",
+                                          **FLEET_SCENE)
+        roots.append(write_nerf_scene(f"{work}/fleet/scene_{i:03d}", sc))
+        scenes.append(sc)
+    return roots, scenes
+
+
+def _fleet_state(tr):
+    import torch
+
+    out = {f"p/{k}": v.detach().clone() for k, v in tr.model.state_dict().items()}
+    for m in ("mu", "nu"):
+        out.update({f"{m}/{k}": v.clone() for k, v in tr.opt_state[m].items()})
+    out["occ"] = tr.occ_grids.clone()
+    return out, tr.opt_state["count"]
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    return a[1] == b[1] and all(torch.equal(v, b[0][k]) for k, v in a[0].items())
+
+
+def phase_slice_fleet(work, smi):
+    """The B = 32 fleet at run_fleet's defaults with ``--pallas_grad``:
+    train (B3 once a step for the whole fleet, a background save midway),
+    one step's fleet table gradient against the plain scatter, train_instance
+    (only ``inst_*`` moves in every scene), save / restore bit-identical
+    (one save in the background while training goes on), ``--mode
+    benchmark``; B3 timed on the fleet step's own index stream."""
+    import torch
+
+    from instance_nerf_tpu_torch.cli import run_fleet
+    from instance_nerf_tpu_torch.kernels import scatter_cuda
+
+    t0 = time.perf_counter()
+    roots, scenes = _fleet_scenes(work)
+    flags = ["--scenes", f"{work}/fleet/scene_*", "--log_every", "0", "--pallas_grad",
+             "--masks_subdir", "masks"] + FLEET_FLAGS
+    out = {"B": FLEET_B, "scene": FLEET_SCENE, "write_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t1 = time.perf_counter()
+    m_rgb = run_fleet.main(["--mode", "train", "--steps", str(FLEET_STEPS["rgb"]),
+                            "--save_every", str(FLEET_STEPS["rgb"] // 2),
+                            "--save_path", f"{work}/fleet_rgb"] + flags)
+    torch.cuda.synchronize()
+    out["train_rgb_s"] = time.perf_counter() - t1
+    out["launches_rgb"] = read_launches()
+    out["peak_mem_bytes_train"] = int(torch.cuda.max_memory_allocated())
+    if out["launches_rgb"]["scatter_add"] != FLEET_STEPS["rgb"]:
+        raise AssertionError(f"slice_fleet: B3 launched {out['launches_rgb']} in "
+                             f"{FLEET_STEPS['rgb']} fleet steps")
+    zero_launches()
+    m_inst = run_fleet.main(["--mode", "train_instance", "--steps",
+                             str(FLEET_STEPS["instance"]), "--checkpoint", f"{work}/fleet_rgb",
+                             "--save_path", f"{work}/fleet_inst"] + flags)
+    out["launches_instance"] = read_launches()
+    before, after = _ckpt_params(f"{work}/fleet_rgb"), _ckpt_params(f"{work}/fleet_inst")
+    moved = _moved(before, after)
+    still = [k for k in moved if not all(not torch.equal(before[k][i], after[k][i])
+                                         for i in range(FLEET_B))]
+    if not moved or any(not k.startswith("inst_") for k in moved) or still:
+        raise AssertionError(f"slice_fleet: the instance stage moved {moved} "
+                             f"(unmoved in some scene: {still})")
+    del before, after
+
+    # the fleet as a trainer: one step's table gradient, save / restore
+    args = run_fleet.build_parser().parse_args(["--mode", "train"] + flags)
+    tr = run_fleet.make_trainer(args, scenes)
+    tr.restore(f"{work}/fleet_inst")
+    o, d, rgb, inst = tr._device_batch()
+    with LaunchRecorder() as rec:
+        _, grads = tr.loss_and_grads("rgb", o, d, rgb, inst)
+    idx, upd, n_levels, trailing, rows, kout = rec.calls[0]
+    g = grads["brick_table"].reshape(kout.shape)
+    plain = scatter_cuda.level_scatter_add_plain(idx, upd, n_levels, trailing, rows)
+    g_err, g_scale = float((g - plain).abs().max()), float(plain.abs().max())
+    if len(rec.calls) != 1 or not torch.equal(g, kout) or g_err > 1e-5 * g_scale:
+        raise AssertionError(f"slice_fleet: fleet table gradient differs from the plain "
+                             f"scatter by {g_err} (largest {g_scale}; {len(rec.calls)} launches)")
+    del grads, g, plain
+    fleet_case = check_scatter("fleet_step", idx, upd, rows, n_levels, trailing,
+                               mag_rtol=1e-5, timed=True)
+    del idx, upd, kout, rec
+    snap = _fleet_state(tr)
+    tr.save(f"{work}/fleet_bg", step=1, background=True)
+    tr.train(4, stage="rgb", log_every=0)  # moves the live tensors while the thread writes
+    tr.wait_for_save()
+    if _same_state(snap, _fleet_state(tr)):
+        raise AssertionError("slice_fleet: training after the save moved nothing")
+    tr.restore(f"{work}/fleet_bg")
+    if not _same_state(snap, _fleet_state(tr)):
+        raise AssertionError("slice_fleet: the background save is not the call-time state")
+    tr.save(f"{work}/fleet_fg", step=2)
+    tr.train(2, stage="instance", log_every=0)
+    tr.restore(f"{work}/fleet_fg")
+    if not _same_state(snap, _fleet_state(tr)):
+        raise AssertionError("slice_fleet: save / restore is not bit-identical")
+    del tr, snap
+    torch.cuda.empty_cache()
+    bench = run_fleet.main(["--mode", "benchmark", "--steps", str(FLEET_STEPS["bench"])]
+                           + flags)
+    tables = FLEET_B * 3 * 2 ** 15 * 32 * 4  # run_fleet's brick tables, f32 bytes
+    out.update(losses_rgb=m_rgb, losses_instance=m_inst, moved_in_instance_stage=moved,
+               table_grad_vs_plain_max_abs_err=g_err, table_grad_max_abs=g_scale,
+               save_restore_bit_identical=True, background_save_call_time=True,
+               table_bytes=tables, benchmark=bench, b3_fleet_step=fleet_case, nvidia_smi=smi,
+               phase_s=time.perf_counter() - t0)
+    emit({"phase": "slice_fleet", **out})
+    torch.cuda.empty_cache()
+    return out, fleet_case
+
+
+def phase_small_reference_fleet():
+    """A small f32 fleet (B = 3) on the card against the port's CPU run: the
+    same seeded weights, numpy rays, uniform draws and random occupancy;
+    losses, gradients and params over rgb -> instance -> rgb."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
+    from instance_nerf_tpu_torch.train.ngp_trainer import adam_update, fast_ngp_config
+
+    rng = np.random.default_rng(0)
+    scenes = [make_synthetic_nerf_scene(rng, n_views=3, hw=(24, 24), n_blobs=2)[0]
+              for _ in range(3)]
+    cfg = fast_ngp_config(**FLEET_REF)
+    occ = np.where(np.random.default_rng(1).uniform(size=(3, 16, 16, 16)) < 0.2, 1e3, 0.0)
+    draws = np.random.default_rng(2).uniform(size=(3, 3, cfg.n_rays, cfg.n_samples))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = MultiSceneFieldTrainer(scenes, cfg, seed=1, device=device)
+        tr.occ_grids = torch.as_tensor(occ, dtype=torch.float32, device=device)
+        losses, grads = [], []
+        for i, stage in enumerate(("rgb", "instance", "rgb")):
+            l, g = tr.loss_and_grads(stage, *tr._batch(),
+                                     jitter=torch.as_tensor(draws[i], dtype=torch.float32,
+                                                            device=device))
+            adam_update(tr.model, g, tr.opt_state, stage, cfg.lr)
+            losses.append({k: v.cpu() for k, v in l.items()})
+            grads.append({k: x.cpu() for k, x in g.items() if x is not None})
+        runs[device] = (losses, grads, {k: v.detach().cpu()
+                                        for k, v in tr.model.state_dict().items()})
+    (lc, gc, pc), (lp, gp, pp) = runs["cuda"], runs["cpu"]
+    loss_err = max(float(((a[k] - b[k]).abs() / b[k].abs().clamp_min(1e-12)).max())
+                   for a, b in zip(lc, lp) for k in b)
+    by_param = {}
+    for a, b in zip(gc, gp):
+        for k in b:
+            e = float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30)
+            by_param[k] = max(by_param.get(k, 0.0), e)
+    # the dense grid's gradient is rounded to bf16 once, after accumulation
+    # (the JAX cast's VJP): a summation order of its own can move an entry
+    # across a bf16 rounding boundary, one bf16 ulp (at most 2^-7 of it)
+    dense_ulps = max(float(((a[k] - b[k]).abs() / (2.0 ** -7 * b[k].abs()).clamp_min(1e-30))
+                           .max()) for a, b in zip(gc, gp) for k in b if k == "dense_grid")
+    grad_err = max(v for k, v in by_param.items() if k != "dense_grid")
+    diff = {k: (pc[k] - pp[k]).abs() for k in pp}
+    off = sum(int((v > 1e-5).sum()) for v in diff.values())
+    total = sum(v.numel() for v in diff.values())
+    report = {"phase": "small_reference_fleet", "B": 3, "dtype": "float32",
+              "max_rel_loss_err": loss_err, "max_grad_err_rel_to_largest": grad_err,
+              "grad_err_rel_to_largest_by_param": by_param,
+              "dense_grid_grad_err_in_bf16_ulps_at_most": dense_ulps,
+              "params_off_by_more_than_1e-5": off, "params_total": total,
+              "params_max_abs_diff": max(float(v.max()) for v in diff.values())}
+    emit(report)
+    if loss_err > 1e-5 or grad_err > 1e-5 or dense_ulps > 1.0 or off > 1e-3 * total:
+        raise AssertionError(f"f32 card fleet disagrees with the CPU run: {report}")
+
+
+def phase_project_masks(work):
+    """A synthetic voxel instance grid and alpha grid projected into 8 views
+    at 128^2 on the card and on the CPU: the id maps equal exactly."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.masks2d.project_masks import write_projections
+
+    rng = np.random.default_rng(7)
+    scene, boxes = make_synthetic_nerf_scene(rng, n_views=PROJECT_VIEWS, hw=PROJECT_HW,
+                                             n_blobs=3, device="cuda")
+    g = PROJECT_GRID
+    inst = np.zeros((g, g, g), np.int32)
+    for k, b in enumerate(boxes * g):
+        lo, hi = np.floor(b[:3]).astype(int), np.ceil(b[3:]).astype(int)
+        inst[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = k + 1
+    alpha = np.where(inst > 0, rng.uniform(0.05, 0.9, inst.shape),
+                     rng.uniform(0.0, 0.05, inst.shape)).astype(np.float32)
+    times = {}
+    for name, device in (("card", "cuda"), ("host", "cpu")):
+        t0 = time.perf_counter()
+        write_projections(f"{work}/proj_{name}", inst, alpha, scene.poses, scene.intrinsics,
+                          scene.hw, device=device)
+        times[name] = time.perf_counter() - t0
+    files = sorted(os.listdir(f"{work}/proj_card"))
+    if files != sorted(os.listdir(f"{work}/proj_host")):
+        raise AssertionError("project_masks: the card and the CPU wrote other files")
+    bad = [f for f in files if not np.array_equal(np.load(f"{work}/proj_card/{f}"),
+                                                  np.load(f"{work}/proj_host/{f}"))]
+    ids = [np.load(f"{work}/proj_card/{v:04d}.npy") for v in range(PROJECT_VIEWS)]
+    report = {"phase": "project_masks", "grid": g, "views": PROJECT_VIEWS, "hw": PROJECT_HW,
+              "files": len(files), "mismatched_files": bad,
+              "pixels_with_instance": int(sum((m > 0).sum() for m in ids)),
+              "instances_seen": sorted({int(i) for m in ids for i in np.unique(m)} - {0}),
+              "card_s": times["card"], "cpu_s": times["host"]}
+    emit(report)
+    if bad or report["pixels_with_instance"] == 0:
+        raise AssertionError(f"project_masks: card and CPU id maps differ: {report}")
+
+
 # a constant lr at the recipes' peak (3e-4, RCNN 1e-3) makes the fresh RCNN
 # heads diverge on one batch; every train loop starts at peak / 25
 TRAIN_SCHEDULE_STEPS = 1000
@@ -1949,6 +2356,11 @@ def main():
     occ_t = phase_kernel_coarse_occ(b5_inputs)
     del b5_inputs
     phase_small_reference_field()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        field_cli = phase_field_cli(work)
+        fleet, fleet_case = phase_slice_fleet(work, smi)
+        phase_small_reference_fleet()
+        phase_project_masks(work)
 
     main_scat = scat["main_all_levels"]
     emit({"kernels": [{
@@ -1985,6 +2397,15 @@ def main():
                           "examples/probe9_scatter_variants.py:41"],
         "launches": launches_field["scatter_add"],
         "launches_fast": launches_fast["scatter_add"],
+        "launches_field_cli": field_cli["launches_rgb"]["scatter_add"],
+        "launches_field_cli_fast": field_cli["launches_fast"]["scatter_add"],
+        "launches_fleet": fleet["launches_rgb"]["scatter_add"],
+        **{case: {k: timed[k] for k in (
+            "n", "w", "rows", "levels", "plan", "ms", "device_ms", "call_device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
+            "max_abs_err", "max_err_per_abs_sum")}
+           for case, timed in (("fleet", fleet_case),
+                               ("field_cli_fast", field_cli["b3_fast_step"]))},
         "max_abs_err": main_scat["max_abs_err"],
         "ms": main_scat["ms"], "device_ms": main_scat["device_ms"],
         "call_device_ms": main_scat["call_device_ms"], "plain_ms": main_scat["plain_ms"],

@@ -1,6 +1,7 @@
 """flax params tree (numpy leaves) -> a state dict of the port's
 ``NeRF_RCNN``, ``NeRFRegionProposalNetwork``, ``FCOSOverNeRF``,
-``InstanceNGP`` or ``InstanceNGPFast``.
+``InstanceNGP`` or ``InstanceNGPFast``, or of a fleet of fields (a stacked
+tree, ``fleet_params_from_jax``).
 
 Mappings:
 
@@ -113,3 +114,26 @@ def ngp_params_from_jax(params) -> dict[str, torch.Tensor]:
               for k in FIELD_TABLES if k in params}
     rest = {k: v for k, v in params.items() if k not in FIELD_TABLES}
     return {**tables, **rcnn_params_from_jax(rest)}
+
+
+def fleet_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """Convert a stacked flax fleet tree (``init_multiscene_params``: every
+    leaf with a leading ``(B,)`` scene axis) to a ``state_dict`` of the
+    port's fleet field (``build_model(cfg, n_scenes=B)``): each scene as
+    ``ngp_params_from_jax`` converts it, stacked on the scene axis."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    leaves = dict(_leaves(params))
+    b = next(iter(leaves.values())).shape[0]
+
+    def scene(i):
+        tree: dict = {}
+        for path, arr in leaves.items():
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = arr[i]
+        return ngp_params_from_jax(tree)
+
+    scenes = [scene(i) for i in range(b)]
+    return {k: torch.stack([s[k] for s in scenes]) for k in scenes[0]}

@@ -4,7 +4,9 @@
 Scenes are numpy on the host. ``NeRFScene.ray_batch`` draws with numpy's
 ``default_rng`` exactly as the JAX package does, so both trainers see the
 same ray batches from the same seed. ``make_synthetic_nerf_scene`` renders
-its ground truth with the port's own ``models/render.py``.
+its ground truth with the port's own ``models/render.py``;
+``write_nerf_scene`` stores a scene as a directory that ``load_nerf_scene``
+(and the JAX package's) reads back. PNGs go through ``data/png.py``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from instance_nerf_tpu_torch.data.png import read_png, write_png
 
 
 @dataclass
@@ -39,9 +43,12 @@ class NeRFScene:
 
 
 def _load_image(path: str) -> np.ndarray:
-    from PIL import Image  # only the loader needs PIL
+    if path.lower().endswith(".png"):
+        img = read_png(path)  # the port's own codec: no Pillow needed
+    else:
+        from PIL import Image  # other formats need Pillow
 
-    img = np.asarray(Image.open(path))
+        img = np.asarray(Image.open(path))
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
     if img.ndim == 2:
@@ -94,6 +101,30 @@ def load_nerf_scene(root: str, transforms_name: str = "transforms.json",
     return NeRFScene(images=np.stack(imgs).astype(np.float32),
                      poses=poses.astype(np.float32), intrinsics=(fx, fy, cx, cy),
                      hw=(h, w), masks=np.stack(masks) if masks else None)
+
+
+def write_nerf_scene(root: str, scene: NeRFScene, masks_dir: str | None = "masks") -> str:
+    """Write ``scene`` as an instant-ngp directory: 8-bit PNG frames
+    ``images/<v>.png``, ``transforms.json`` (its intrinsics, the unit-cube
+    poses with scale 1 and offset 0) and, where the scene has masks and
+    ``masks_dir`` is given, ``<masks_dir>/<v>.npy``. Returns ``root``."""
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    fx, fy, cx, cy = (float(v) for v in scene.intrinsics)
+    frames = []
+    for v in range(scene.num_views):
+        stem = f"{v:04d}"
+        write_png(os.path.join(root, "images", stem + ".png"),
+                  np.round(np.clip(scene.images[v], 0.0, 1.0) * 255.0).astype(np.uint8))
+        frames.append({"file_path": f"images/{stem}.png",
+                       "transform_matrix": np.asarray(scene.poses[v], np.float64).tolist()})
+        if scene.masks is not None and masks_dir:
+            os.makedirs(os.path.join(root, masks_dir), exist_ok=True)
+            np.save(os.path.join(root, masks_dir, stem + ".npy"), scene.masks[v])
+    meta = {"fl_x": fx, "fl_y": fy, "cx": cx, "cy": cy, "w": int(scene.hw[1]),
+            "h": int(scene.hw[0]), "scale": 1.0, "offset": [0.0, 0.0, 0.0], "frames": frames}
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump(meta, f)
+    return root
 
 
 def look_at_pose(eye, target=(0.5, 0.5, 0.5), up=(0.0, 0.0, 1.0)):

@@ -192,10 +192,11 @@ def level_scatter_add_plain(flat_idx: torch.Tensor, d_rows: torch.Tensor, n_leve
 
 class _GatherRowsKernelGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table2d, flat_idx, n_levels, trailing, replicas):
+    def forward(ctx, table2d, flat_idx, n_levels, trailing, replicas, rows_dtype):
         ctx.save_for_backward(flat_idx)
         ctx.layout = (table2d.shape[0] // n_levels, n_levels, trailing, replicas)
-        return table2d.index_select(0, flat_idx)
+        rows = table2d.index_select(0, flat_idx)
+        return rows if rows_dtype is None else rows.to(rows_dtype)
 
     @staticmethod
     def backward(ctx, d_rows):
@@ -207,26 +208,31 @@ class _GatherRowsKernelGrad(torch.autograd.Function):
                                               rows_per_level)
         else:
             d_table = _launch(flat_idx, d_rows, n_levels, trailing, rows_per_level, replicas)
-        return d_table, None, None, None, None
+        return d_table, None, None, None, None, None
 
 
 def gather_rows_kernel_grad(table2d: torch.Tensor, flat_idx: torch.Tensor,
-                            n_levels: int, trailing: int = 1,
-                            replicas: int = 1) -> torch.Tensor:
+                            n_levels: int, trailing: int = 1, replicas: int = 1,
+                            rows_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``table2d.index_select(0, flat_idx)`` whose TABLE gradient is kernel
     B3, one launch for all levels (on a CPU tensor, its plain version).
 
     ``table2d`` is the flattened ``(L * T, W)`` f32 multi-level table;
     ``flat_idx.reshape(-1, n_levels, trailing)`` must split the levels:
     ``brick_encode`` flattens ``(N, L)`` (trailing = 1), ``hash_encode``
-    ``(N, L, 8)`` corner-minor (trailing = 8). No gradient flows to the
-    indices."""
+    ``(N, L, 8)`` corner-minor (trailing = 8); a fleet's ``(N, B, L)`` is
+    ``B * L`` levels. ``rows_dtype`` casts the gathered rows (a bf16 table
+    read): their gradient arrives in that dtype and the kernel's f32 sum
+    goes to the f32 table as it is, as the JAX package's custom VJP hands
+    the Pallas scatter's f32 sum to its f32 master table. No gradient flows
+    to the indices."""
     if table2d.dtype != torch.float32:
         raise TypeError(f"table2d must be float32, got {table2d.dtype}")
     if table2d.shape[0] % n_levels or flat_idx.shape[0] % (n_levels * trailing):
         raise ValueError(f"{table2d.shape[0]} rows / {flat_idx.shape[0]} indices do not "
                          f"split into {n_levels} levels x trailing {trailing}")
-    return _GatherRowsKernelGrad.apply(table2d, flat_idx, n_levels, trailing, replicas)
+    return _GatherRowsKernelGrad.apply(table2d, flat_idx, n_levels, trailing, replicas,
+                                       rows_dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,6 +25,8 @@ from instance_nerf_tpu_torch.models.hashgrid import (
     corner_weights,
     gather_rows,
     hash_cells,
+    scene_major_features,
+    scene_major_points,
 )
 
 
@@ -32,8 +34,9 @@ def dense_trilinear(grid: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """Trilinear interpolation of ``(R, R, R, F)`` at ``xyz`` in [0, 1]^3 ->
     ``(..., F)``, with the x weights and the grid rounded to bf16 as in the
     JAX package's MXU contraction. The grid's gradient is rounded to bf16
-    once, after accumulation, as the JAX cast's VJP does."""
-    r, f = grid.shape[0], grid.shape[-1]
+    once, after accumulation, as the JAX cast's VJP does. A fleet's ``(B, R,
+    R, R, F)`` grids take ``(B, ..., 3)``, scene b read from grid b."""
+    r, f = grid.shape[-2], grid.shape[-1]
     lead = xyz.shape[:-1]
     p = torch.clamp(xyz.reshape(-1, 3), 0.0, 1.0) * (r - 1)  # (N, 3)
     i0 = torch.floor(p).to(torch.int64).clamp(0, r - 1)
@@ -44,6 +47,11 @@ def dense_trilinear(grid: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
                      torch.zeros_like(p))
     g16 = grid.to(torch.bfloat16).to(torch.float32).reshape(-1, f)
     bx = [w.to(torch.bfloat16).to(torch.float32)[:, 0:1] for w in (w0, w1)]
+    if grid.dim() == 5:  # a fleet: scene b's rows start at b * R^3
+        b = grid.shape[0]
+        scene = (torch.arange(b, device=p.device) * r).repeat_interleave(p.shape[0] // b)
+        i0 = torch.cat([i0[:, :1] + scene[:, None], i0[:, 1:]], dim=1)
+        i1 = torch.cat([i1[:, :1] + scene[:, None], i1[:, 1:]], dim=1)
     ix = (i0[:, 0], i1[:, 0])
     iy = (i0[:, 1], i1[:, 1])
     iz = (i0[:, 2], i1[:, 2])
@@ -61,14 +69,18 @@ def dense_trilinear(grid: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
 
 
 def brick_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
-                 pallas_grad: bool = False, pallas_replicas: int = 1) -> torch.Tensor:
+                 pallas_grad: bool = False, pallas_replicas: int = 1,
+                 table_cast: torch.dtype | None = None) -> torch.Tensor:
     """Brick-hash encoding ``(L, T, 8, F)`` table -> ``(..., L * F)``: ONE
     gathered row per (point, level). Dense levels (res^3 <= T) index
     directly; finer levels hash the cell with the NGP primes. The flat
-    index layout is ``(N, L)`` (trailing = 1)."""
-    L, T, C, F = table.shape
+    index layout is ``(N, L)`` (trailing = 1); a fleet's ``(B, L, T, 8, F)``
+    tables take ``(B, ..., 3)`` and lay out ``(N, B, L)``, B * L levels of
+    one kernel launch. ``table_cast``: the rows are read in this dtype (a
+    bf16 table); the f32 table stays the master."""
+    L, T, C, F = table.shape[-4:]
     lead = xyz.shape[:-1]
-    x = xyz.reshape(-1, 3)
+    x, b = scene_major_points(table, 4, xyz)
     n = x.shape[0]
     res_np = np.asarray(resolutions, np.int64)
     resf = torch.as_tensor(res_np, dtype=x.dtype, device=x.device)
@@ -80,12 +92,12 @@ def brick_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
     frac = p - cell
     c = torch.minimum(cell.to(torch.int64),
                       torch.as_tensor(res_np - 1, device=x.device).view(1, L, 1))
-    flat = _level_flat(hash_cells(c, res_np, T), L, T)
-    rows = gather_rows(table.reshape(L * T, C * F), flat, L, 1, pallas_grad,
-                       pallas_replicas)  # (N * L, C * F)
+    flat = _level_flat(hash_cells(c, res_np, T).reshape(-1, b * L), b * L, T)
+    rows = gather_rows(table.reshape(b * L * T, C * F), flat, b * L, 1, pallas_grad,
+                       pallas_replicas, table_cast)  # (N * L, C * F)
     w = corner_weights(frac.reshape(-1, 3))  # (N * L, 8)
     feats = (rows.view(n * L, C, F) * w[..., None]).sum(1)
-    return feats.reshape(*lead, L * F)
+    return scene_major_features(feats.reshape(n, L * F), b, lead)
 
 
 def pe_encode(xyz: torch.Tensor, n_freqs: int = 4) -> torch.Tensor:
@@ -120,36 +132,39 @@ def mask_to_instance_head(tree: dict) -> dict:
 
 class InstanceNGPFast(NGPHeads):
     """Instance-field NeRF with the fast encoding: dense base grid +
-    brick-hash levels + positional encoding. Same heads as ``InstanceNGP``."""
+    brick-hash levels + positional encoding. Same heads as ``InstanceNGP``.
+    ``table_dtype="bfloat16"`` reads the brick table in bf16 (the f32 table
+    and its Adam state stay the master; any other value reads f32, as in the
+    JAX package). ``n_scenes``: a fleet, as for ``InstanceNGP``."""
 
     def __init__(self, n_levels: int = 6, table_size: int = 2 ** 17, n_features: int = 2,
                  base_res: int = 32, max_res: int = 1024, dense_res: int = 16,
                  dense_features: int = 8, pe_freqs: int = 4, geo_feat_dim: int = 15,
                  hidden: int = 64, num_instances: int = 33, dtype=None,
                  pallas_grad: bool = False, pallas_replicas: int = 1,
-                 table_dtype: str | None = None):
+                 table_dtype: str | None = None, n_scenes: int | None = None):
         super().__init__()
-        if table_dtype is not None:
-            raise NotImplementedError(
-                "table_dtype (a cast table for the gather and its scatter) is not "
-                "ported yet (ROADMAP queue A, slice 6)")
+        self.table_cast = torch.bfloat16 if table_dtype == "bfloat16" else None
         self.pallas_grad = pallas_grad
         self.pallas_replicas = pallas_replicas
         self.pe_freqs = pe_freqs
         self.resolutions = brick_resolutions(n_levels, base_res, max_res)
+        self.n_scenes = n_scenes
         self.brick_table = nn.Parameter(
-            torch.zeros((n_levels, table_size, 8, n_features), dtype=torch.float32))
+            torch.zeros(self._stacked((n_levels, table_size, 8, n_features)),
+                        dtype=torch.float32))
         self.dense_grid = nn.Parameter(
-            torch.zeros((dense_res,) * 3 + (dense_features,), dtype=torch.float32))
+            torch.zeros(self._stacked((dense_res,) * 3 + (dense_features,)),
+                        dtype=torch.float32))
         in_dim = dense_features + n_levels * n_features + 6 * pe_freqs
-        self._make_heads(in_dim, geo_feat_dim, hidden, num_instances, dtype)
+        self._make_heads(in_dim, geo_feat_dim, hidden, num_instances, dtype, n_scenes)
 
     def encode(self, xyz):
         return torch.cat([
             dense_trilinear(self.dense_grid, xyz),
             brick_encode(self.brick_table, xyz, self.resolutions,
                          pallas_grad=self.pallas_grad,
-                         pallas_replicas=self.pallas_replicas),
+                         pallas_replicas=self.pallas_replicas, table_cast=self.table_cast),
             pe_encode(xyz, self.pe_freqs),
         ], dim=-1)
 

@@ -63,25 +63,53 @@ def corner_weights(frac: torch.Tensor) -> torch.Tensor:
     return w[..., 0] * w[..., 1] * w[..., 2]
 
 
-def gather_rows(table2d, flat, n_levels, trailing, pallas_grad, replicas=1):
+def gather_rows(table2d, flat, n_levels, trailing, pallas_grad, replicas=1, rows_dtype=None):
+    """The rows ``flat`` of the f32 ``table2d``, read as ``rows_dtype`` (None:
+    f32). With ``pallas_grad`` the table gradient is kernel B3 and reaches
+    the table in f32; else it is torch's ``index_select`` backward, in
+    ``rows_dtype`` (XLA's scatter in the table's dtype), then cast."""
     if pallas_grad:
-        return gather_rows_kernel_grad(table2d, flat, n_levels, trailing, replicas)
+        return gather_rows_kernel_grad(table2d, flat, n_levels, trailing, replicas, rows_dtype)
+    if rows_dtype is not None:
+        table2d = table2d.to(rows_dtype)
     return table2d.index_select(0, flat)
+
+
+def scene_major_points(table: torch.Tensor, table_dims: int, xyz: torch.Tensor):
+    """Points of one field or of a fleet, whose tables carry a leading scene
+    axis (``table.dim() == table_dims + 1``, ``xyz (B, ..., 3)``), as
+    ``(N * B, 3)`` in (point, scene) order: the flat indices then lay out as
+    ``(N, B, L, ...)``, B * L levels for the scatter-add kernel. Returns the
+    points and B (1 for one field)."""
+    if table.dim() == table_dims:
+        return xyz.reshape(-1, 3), 1
+    b = table.shape[0]
+    return xyz.reshape(b, -1, 3).transpose(0, 1).reshape(-1, 3), b
+
+
+def scene_major_features(feats: torch.Tensor, b: int, lead) -> torch.Tensor:
+    """``(N * B, D)`` features in (point, scene) order -> ``(*lead, D)``."""
+    d = feats.shape[-1]
+    if b == 1:
+        return feats.reshape(*lead, d)
+    return feats.reshape(-1, b, d).transpose(0, 1).reshape(*lead, d)
 
 
 def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
                 pallas_grad: bool = False) -> torch.Tensor:
     """Trilinear multiresolution hash encoding ``(L, T, F)`` table,
-    ``(..., 3)`` points in [0, 1] -> ``(..., L * F)``.
+    ``(..., 3)`` points in [0, 1] -> ``(..., L * F)``; a fleet's ``(B, L, T,
+    F)`` tables take ``(B, ..., 3)``.
 
     Corners are clamped to ``res - 1`` so the +1 corner at xyz == 1 stays in
     range (its weight is 0). The flat index layout is ``(N, L, 8)``, corners
-    minor, which the kernel's level split relies on (trailing = 8). The JAX
-    package chunks large batches under ``lax.map``; that changes nothing
-    numerically, and the port encodes a batch in one pass."""
-    L, T, F = table.shape
+    minor, which the kernel's level split relies on (trailing = 8); a
+    fleet's is ``(N, B, L, 8)``, B * L levels. The JAX package chunks large
+    batches under ``lax.map``; that changes nothing numerically, and the
+    port encodes a batch in one pass."""
+    L, T, F = table.shape[-3:]
     lead = xyz.shape[:-1]
-    x = xyz.reshape(-1, 3)
+    x, b = scene_major_points(table, 3, xyz)
     n = x.shape[0]
     res_np = np.asarray(resolutions, np.int64)
     resf = torch.as_tensor(res_np, dtype=x.dtype, device=x.device)
@@ -91,11 +119,11 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
     corners = torch.as_tensor(CORNER_OFFSETS.astype(np.int64), device=x.device)
     c = p0.to(torch.int64)[:, :, None, :] + corners[None, None]  # (N, L, 8, 3)
     c = torch.minimum(c, torch.as_tensor(res_np - 1, device=x.device).view(1, L, 1, 1))
-    flat = _level_flat(hash_cells(c, res_np, T), L, T)
-    gathered = gather_rows(table.reshape(L * T, F), flat, L, 8, pallas_grad)
+    flat = _level_flat(hash_cells(c, res_np, T).reshape(-1, b * L, 8), b * L, T)
+    gathered = gather_rows(table.reshape(b * L * T, F), flat, b * L, 8, pallas_grad)
     w = corner_weights(frac.reshape(-1, 3))  # (N * L, 8)
     feats = (gathered.view(n * L, 8, F) * w[..., None]).sum(1)
-    return feats.reshape(*lead, L * F)
+    return scene_major_features(feats.reshape(n, L * F), b, lead)
 
 
 def ngp_resolutions(n_levels: int = 16, base_res: int = 16, max_res: int = 2048):
@@ -130,27 +158,53 @@ def density_activation(sigma_raw: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(sigma_raw, -15.0, 15.0))
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+class FleetDense(nn.Module):
+    """B scenes' ``Dense`` layers stacked: ``weight (B, out, in)``, ``bias
+    (B, out)``, applied to ``(B, ..., in)`` as one batched matmul."""
+
+    def __init__(self, n_scenes: int, in_dim: int, out_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros((n_scenes, out_dim, in_dim)))
+        self.bias = nn.Parameter(torch.zeros((n_scenes, out_dim)))
+
+
+def dense(layer, x: torch.Tensor, dtype) -> torch.Tensor:
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
-    (None keeps f32)."""
-    if dtype is None:
-        return layer(x)
-    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    (None keeps f32). A ``FleetDense`` takes scene b's rows ``x[b]`` to its
+    own weights (flax's Dense under ``vmap``)."""
+    w, bias = layer.weight, layer.bias
+    if dtype is not None:
+        x, w, bias = x.to(dtype), w.to(dtype), bias.to(dtype)
+    if w.dim() == 2:
+        return nn.functional.linear(x, w, bias)
+    b = w.shape[0]
+    y = torch.baddbmm(bias[:, None, :], x.reshape(b, -1, x.shape[-1]), w.transpose(1, 2))
+    return y.reshape(*x.shape[:-1], w.shape[1])
 
 
 class NGPHeads(nn.Module):
     """The sigma, color and instance MLPs shared by both field encodings;
     parameter names follow the flax modules (``sigma_0`` ... ``inst_1``)."""
 
-    def _make_heads(self, in_dim, geo_feat_dim, hidden, num_instances, dtype):
+    def _make_heads(self, in_dim, geo_feat_dim, hidden, num_instances, dtype,
+                    n_scenes=None):
         self.dtype = dtype
-        self.sigma_0 = nn.Linear(in_dim, hidden)
-        self.sigma_1 = nn.Linear(hidden, 1 + geo_feat_dim)
-        self.color_0 = nn.Linear(geo_feat_dim + 9, hidden)
-        self.color_1 = nn.Linear(hidden, hidden)
-        self.color_2 = nn.Linear(hidden, 3)
-        self.inst_0 = nn.Linear(geo_feat_dim, hidden)
-        self.inst_1 = nn.Linear(hidden, num_instances)
+        self.n_scenes = n_scenes
+
+        def layer(i, o):
+            return nn.Linear(i, o) if n_scenes is None else FleetDense(n_scenes, i, o)
+
+        self.sigma_0 = layer(in_dim, hidden)
+        self.sigma_1 = layer(hidden, 1 + geo_feat_dim)
+        self.color_0 = layer(geo_feat_dim + 9, hidden)
+        self.color_1 = layer(hidden, hidden)
+        self.color_2 = layer(hidden, 3)
+        self.inst_0 = layer(geo_feat_dim, hidden)
+        self.inst_1 = layer(hidden, num_instances)
+
+    def _stacked(self, shape):
+        """A parameter shape with the fleet's leading scene axis, if any."""
+        return shape if self.n_scenes is None else (self.n_scenes, *shape)
 
     def sigma_head(self, h):
         """Encoded features -> (sigma_raw (...,), geo (..., geo_feat_dim))."""
@@ -190,18 +244,23 @@ class NGPHeads(nn.Module):
 class InstanceNGP(NGPHeads):
     """Hash-grid NeRF + instance-logit head. ``num_instances`` includes
     background/void at 0. ``dtype`` is the MLPs' compute dtype (None = f32;
-    parameters stay f32)."""
+    parameters stay f32). ``n_scenes``: a fleet of that many fields, every
+    parameter stacked on a leading scene axis, queried with ``(B, ..., 3)``
+    points (scene b's through field b)."""
 
     def __init__(self, n_levels: int = 16, table_size: int = 2 ** 19, n_features: int = 2,
                  base_res: int = 16, max_res: int = 2048, geo_feat_dim: int = 15,
                  hidden: int = 64, num_instances: int = 33, dtype=None,
-                 pallas_grad: bool = False):
+                 pallas_grad: bool = False, n_scenes: int | None = None):
         super().__init__()
         self.pallas_grad = pallas_grad
         self.resolutions = ngp_resolutions(n_levels, base_res, max_res)
+        self.n_scenes = n_scenes
         self.hash_table = nn.Parameter(
-            torch.zeros((n_levels, table_size, n_features), dtype=torch.float32))
-        self._make_heads(n_levels * n_features, geo_feat_dim, hidden, num_instances, dtype)
+            torch.zeros(self._stacked((n_levels, table_size, n_features)),
+                        dtype=torch.float32))
+        self._make_heads(n_levels * n_features, geo_feat_dim, hidden, num_instances, dtype,
+                         n_scenes)
 
     def encode(self, xyz):
         return hash_encode(self.hash_table, xyz, self.resolutions,

@@ -15,11 +15,13 @@ the updates outside ``inst_*`` are masked (frozen NeRF) while the moments
 still decay and the step count advances. ``torch.optim.Adam`` skips
 parameters without a gradient, which is another optimizer.
 
-The JAX package scans K steps per dispatch; here the loop is plain Python.
+The JAX package scans ``steps_per_call`` steps per dispatch; here a chunk
+draws its ray batches first, as the scan does, then runs its steps eagerly.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import time
@@ -37,8 +39,11 @@ from instance_nerf_tpu_torch.models.hashgrid import InstanceNGP, density_activat
 from instance_nerf_tpu_torch.models.render import (
     OccupancyGrid,
     camera_rays,
+    coarse_occupancy_mxu,
     init_occupancy,
+    ray_aabb,
     render_rays,
+    sample_points,
     update_occupancy,
 )
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
@@ -65,7 +70,8 @@ class NGPConfig:
     occ_res: int = 128
     occ_update_every: int = 16
     occ_threshold: float = 0.01
-    occ_subsample: float = 1.0  # fleets only (slice 6)
+    # fleets: share of the G^3 cells re-sampled a refresh (1.0 = dense)
+    occ_subsample: float = 1.0
     dtype: str = "float32"  # MLP compute dtype ("bfloat16")
     instance_fg_weight: float = 5.0
     # rgb-stage background-transparency pressure (mean acc^2 over label-0 rays)
@@ -74,10 +80,13 @@ class NGPConfig:
     k_occupied: int | None = None
     # two-stage occupancy: coarse selection + fine mask on the K samples
     occ_coarse_res: int | None = None
-    # adaptive-K routing (slice 6; raises here)
+    # adaptive-K routing: ((fraction, K), ...), rays sorted by occupancy hits,
+    # the emptiest fraction compacted with the smallest K; overrides k_occupied
     k_buckets: tuple | None = None
+    # ONE field query over all buckets' points
     fuse_buckets: bool = True
-    table_dtype: str | None = None  # cast tables for gather/scatter (not yet)
+    # "bfloat16": the brick table read in bf16 (the f32 master and Adam stay)
+    table_dtype: str | None = None
     # table gradient through the hand-written scatter-add kernel (B3)
     pallas_grad: bool = False
     # disjoint accumulator copies in that kernel
@@ -112,12 +121,14 @@ def rays_multi(poses: torch.Tensor, views, pix, scene: NeRFScene):
     return c2w[:, :3, 3], d
 
 
-def build_model(cfg: NGPConfig):
+def build_model(cfg: NGPConfig, n_scenes: int | None = None):
+    """The field of ``cfg``; with ``n_scenes``, a fleet of that many fields
+    (parameters stacked on a leading scene axis)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
     common = dict(n_levels=cfg.n_levels, table_size=cfg.table_size,
                   n_features=cfg.n_features, base_res=cfg.base_res, max_res=cfg.max_res,
                   hidden=cfg.hidden, num_instances=cfg.num_instances, dtype=dtype,
-                  pallas_grad=cfg.pallas_grad)
+                  pallas_grad=cfg.pallas_grad, n_scenes=n_scenes)
     if cfg.encoding == "fast":
         return InstanceNGPFast(dense_res=cfg.dense_res, dense_features=cfg.dense_features,
                                pallas_replicas=cfg.pallas_replicas,
@@ -130,14 +141,15 @@ def init_ngp_params(model: torch.nn.Module, seed: int) -> None:
     """Seeded random init with flax's initializers, drawn on the CPU (so a
     card run and a CPU run start from the same weights): tables
     uniform(-1e-4, 1e-4), ``Dense`` kernels lecun-normal (truncated at two
-    standard deviations), zero biases. The numbers differ from JAX's."""
+    standard deviations), zero biases. The numbers differ from JAX's. A
+    fleet's scenes take consecutive draws of the one generator."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             val = torch.zeros(p.shape)
         elif name.endswith("weight"):
             # flax lecun_normal: variance 1 / fan_in, truncated normal
-            std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+            std = math.sqrt(1.0 / p.shape[-1]) / 0.87962566103423978
             val = torch.nn.init.trunc_normal_(torch.empty(p.shape), std=std, a=-2 * std,
                                               b=2 * std, generator=gen)
         else:  # the tables
@@ -149,24 +161,26 @@ def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> di
     """The JAX step's losses: ``rgb`` (MSE, trained unless the stage is
     "instance"), ``bg_acc`` (optional), ``instance`` (log-softmax CE, targets
     clipped at 0, foreground weight, ``target >= 0`` valid, sum-normalised;
-    trained unless the stage is "rgb"), ``psnr``, and their ``total``."""
+    trained unless the stage is "rgb"), ``psnr``, and their ``total``. With
+    a leading scene axis (a fleet's ``(B, R)`` rays) each is ``(B,)``, one
+    per scene."""
     losses = {}
-    rgb_loss = torch.mean((out.rgb - target_rgb) ** 2)
+    rgb_loss = torch.mean((out.rgb - target_rgb) ** 2, dim=(-2, -1))
     losses["rgb"] = rgb_loss
     total = rgb_loss if stage != "instance" else 0.0
     if stage != "instance" and cfg.bg_acc_weight > 0:
         is_bg = target_inst == 0
-        bg = torch.sum(torch.where(is_bg, out.acc ** 2, 0.0))
-        bg = bg / torch.clamp(is_bg.sum(), min=1)
+        bg = torch.sum(torch.where(is_bg, out.acc ** 2, 0.0), dim=-1)
+        bg = bg / torch.clamp(is_bg.sum(dim=-1), min=1)
         losses["bg_acc"] = bg
         total = total + cfg.bg_acc_weight * bg
     if stage != "rgb":
         valid = target_inst >= 0
         logp = torch.log_softmax(out.instance_logits, dim=-1)
-        ce = -torch.gather(logp, -1, torch.clamp(target_inst, min=0)[:, None].long())[:, 0]
+        ce = -torch.gather(logp, -1, torch.clamp(target_inst, min=0)[..., None].long())[..., 0]
         w = torch.where(target_inst > 0, cfg.instance_fg_weight, 1.0)
         w = torch.where(valid, w, 0.0)
-        inst_loss = torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1)
+        inst_loss = torch.sum(ce * w, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1)
         losses["instance"] = inst_loss
         total = total + inst_loss
     losses["psnr"] = -10.0 * torch.log10(torch.clamp(rgb_loss, min=1e-8))
@@ -174,9 +188,67 @@ def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> di
     return losses
 
 
-class InstanceFieldTrainer:
-    ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
 
+
+def adam_init(model: torch.nn.Module) -> dict:
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    return {"count": 0, "mu": zeros, "nu": {n: torch.zeros_like(p) for n, p in zeros.items()}}
+
+
+@torch.no_grad()
+def adam_update(model: torch.nn.Module, grads: dict, st: dict, stage: str, lr: float) -> None:
+    """One optax-style Adam step over every parameter of ``model`` in place
+    (see the module docstring for the masking rules); a fleet's stacked
+    parameters update elementwise with the one shared count."""
+    b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
+    st["count"] += 1
+    # optax's bias corrections 1 - b^count, in f32
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(st["count"]))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(st["count"]))
+    for name, p in model.named_parameters():
+        frozen = stage == "instance" and not is_instance_param(name)
+        g = None if frozen else grads.get(name)
+        mu, nu = st["mu"][name], st["nu"][name]
+        mu.mul_(b1)
+        nu.mul_(b2)
+        if g is not None:
+            mu.add_(g * (1 - b1))
+            nu.add_(g * g * (1 - b2))
+        if frozen:
+            continue
+        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        p.add_(upd.mul_(-lr))
+
+
+SAMPLING_FIELDS = {"k_buckets", "k_occupied", "n_samples", "ray_jitter", "occ_coarse_res",
+                   "fuse_buckets"}
+
+
+def replace_sampling(cfg: NGPConfig, overrides: dict) -> NGPConfig:
+    """``cfg`` with sampler fields swapped; any other field raises."""
+    bad = set(overrides) - SAMPLING_FIELDS
+    if bad:
+        raise ValueError(f"set_sampling: not sampler fields: {bad}")
+    return dataclasses.replace(cfg, **overrides)
+
+
+def chunk_sizes(steps: int, stage: str, cfg: NGPConfig, steps_per_call: int | None):
+    """The steps of each call of a training loop: ``steps_per_call``
+    (default ``occ_update_every``), outside the instance stage at most
+    ``occ_update_every``, so that an occupancy refresh can land after every
+    ``occ_update_every`` steps; the last call takes the rest."""
+    spc = steps_per_call or cfg.occ_update_every
+    if stage != "instance":
+        spc = min(spc, cfg.occ_update_every)
+    done = 0
+    while done < steps:
+        k = min(spc, steps - done)
+        done += k
+        yield k, done, spc
+
+
+class InstanceFieldTrainer:
     def __init__(self, cfg: NGPConfig | None = None, seed: int = 0, device="cuda"):
         self.cfg = cfg = cfg or NGPConfig()
         self.device = resolve_device(device)
@@ -188,17 +260,12 @@ class InstanceFieldTrainer:
         self.model.to(self.device)
         self.np_rng = np.random.default_rng(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.opt_state = self._adam_init()
+        self.opt_state = adam_init(self.model)
         self.occ = init_occupancy(cfg.occ_res, cfg.occ_threshold, self.device)
         # the step's stages: profiler ranges ``field.<name>``
         self._stage = Stages("field")
 
     # -- state ----------------------------------------------------------------
-
-    def _adam_init(self):
-        zeros = {n: torch.zeros_like(p) for n, p in self.model.named_parameters()}
-        return {"count": 0, "mu": zeros,
-                "nu": {n: torch.zeros_like(p) for n, p in zeros.items()}}
 
     @property
     def params(self) -> dict:
@@ -233,8 +300,8 @@ class InstanceFieldTrainer:
                            occ=self.occ, stratified=stratified,
                            with_instance=with_instance, k_occupied=cfg.k_occupied,
                            occ_coarse_res=cfg.occ_coarse_res, k_buckets=cfg.k_buckets,
-                           ray_jitter=cfg.ray_jitter, generator=self.gen, jitter=jitter,
-                           stage=self._stage)
+                           fuse_buckets=cfg.fuse_buckets, ray_jitter=cfg.ray_jitter,
+                           generator=self.gen, jitter=jitter, stage=self._stage)
 
     def loss_and_grads(self, stage: str, o, d, target_rgb, target_inst, jitter=None):
         """Losses and ``{name: grad or None}`` of one batch (None where no
@@ -249,30 +316,11 @@ class InstanceFieldTrainer:
             grads = torch.autograd.grad(losses["total"], params, allow_unused=True)
         return {k: v.detach() for k, v in losses.items()}, dict(zip(names, grads))
 
-    @torch.no_grad()
     def apply_grads(self, stage: str, grads: dict) -> None:
         """One optax-style Adam step over every parameter (see the module
         docstring for the masking rules)."""
-        b1, b2, eps, lr = self.ADAM_B1, self.ADAM_B2, self.ADAM_EPS, self.cfg.lr
-        st = self.opt_state
-        st["count"] += 1
-        # optax's bias corrections 1 - b^count, in f32
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(st["count"]))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(st["count"]))
         with self._stage("adam"):
-            for name, p in self.model.named_parameters():
-                frozen = stage == "instance" and not is_instance_param(name)
-                g = None if frozen else grads.get(name)
-                mu, nu = st["mu"][name], st["nu"][name]
-                mu.mul_(b1)
-                nu.mul_(b2)
-                if g is not None:
-                    mu.add_(g * (1 - b1))
-                    nu.add_(g * g * (1 - b2))
-                if frozen:
-                    continue
-                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                p.add_(upd.mul_(-lr))
+            adam_update(self.model, grads, self.opt_state, stage, self.cfg.lr)
 
     def train_step(self, stage: str, o, d, target_rgb, target_inst, jitter=None) -> dict:
         """One training step; returns the losses (tensors, no host sync)."""
@@ -291,9 +339,10 @@ class InstanceFieldTrainer:
             self.occ = update_occupancy(self.occ, self.sigma, generator=self.gen,
                                         jitter=jitter)
 
-    def _batch(self, scene: NeRFScene, poses: torch.Tensor):
-        """The next ray batch of ``scene`` from the trainer's numpy stream."""
-        v, pix, rgb, inst = scene.ray_batch(self.np_rng, self.cfg.n_rays)
+    def _batch(self, scene: NeRFScene, poses: torch.Tensor, drawn=None):
+        """The next ray batch of ``scene`` from the trainer's numpy stream
+        (or the ``drawn`` one) on the device."""
+        v, pix, rgb, inst = drawn or scene.ray_batch(self.np_rng, self.cfg.n_rays)
         if inst is None:
             inst = np.zeros((self.cfg.n_rays,), np.int32)
         with self._stage("rays"):
@@ -304,20 +353,59 @@ class InstanceFieldTrainer:
 
     # -- training -------------------------------------------------------------
 
+    def set_sampling(self, **overrides) -> None:
+        """Swap sampler fields (``k_buckets``, ``k_occupied``, ``n_samples``,
+        ``ray_jitter``, ``occ_coarse_res``, ``fuse_buckets``) mid-run, keeping
+        params, Adam state and occupancy; any other field raises."""
+        self.cfg = replace_sampling(self.cfg, overrides)
+
+    @torch.no_grad()
+    def measure_hits(self, scene: NeRFScene, n_rays: int | None = None, seed: int = 0,
+                     generator=None, jitter=None) -> np.ndarray:
+        """Per-ray occupancy hit counts of the candidate samples on a ray
+        batch of ``scene`` (drawn with ``default_rng(seed)``) under the
+        current grid, 0 for rays that miss the cube: the input of
+        ``choose_k_buckets``. The stratified draws come from ``generator``
+        (default: one seeded with ``seed``) or are ``jitter``."""
+        cfg = self.cfg
+        n = n_rays or cfg.n_rays
+        v, pix, _, _ = scene.ray_batch(np.random.default_rng(seed), n)
+        poses = torch.as_tensor(scene.poses, dtype=torch.float32, device=self.device)
+        o, d = rays_multi(poses, v, pix, scene)
+        near, far = ray_aabb(o, d)
+        valid = far > near
+        far = torch.maximum(far, near + 1e-4)
+        if jitter is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        xyz, _, _ = sample_points(o, d, cfg.n_samples, near, far, True,
+                                  per_ray_jitter=cfg.ray_jitter, generator=generator,
+                                  jitter=jitter)
+        xyz = torch.clamp(xyz, 0.0, 1.0)
+        if cfg.occ_coarse_res and cfg.occ_coarse_res < self.occ.res:
+            occ_all = coarse_occupancy_mxu(self.occ, xyz, cfg.occ_coarse_res)
+        else:
+            occ_all = self.occ.occupied(xyz)
+        return torch.where(valid, occ_all.sum(-1), 0.0).cpu().numpy()
+
     def train(self, scene: NeRFScene, steps: int, stage: str = "rgb",
-              log_every: int = 100, log=print) -> dict:
-        """Staged training loop. Outside the instance stage the occupancy
-        grid is refreshed after every ``occ_update_every``-th step of this
-        call, as the JAX trainer does."""
+              log_every: int = 100, log=print, steps_per_call: int | None = None) -> dict:
+        """Staged training loop in calls of ``steps_per_call`` steps (see
+        ``chunk_sizes``): each call draws its ray batches from the numpy
+        stream first, in the order single steps draw them, then steps.
+        Outside the instance stage the occupancy grid is refreshed after a
+        call that ends on a multiple of ``occ_update_every``, as the JAX
+        trainer does."""
         cfg = self.cfg
         poses = torch.as_tensor(scene.poses, dtype=torch.float32, device=self.device)
         t0 = time.time()
         last = {}
-        for done in range(1, steps + 1):
-            last = self.train_step(stage, *self._batch(scene, poses))
+        for k, done, spc in chunk_sizes(steps, stage, cfg, steps_per_call):
+            drawn = [scene.ray_batch(self.np_rng, cfg.n_rays) for _ in range(k)]
+            for batch in drawn:
+                last = self.train_step(stage, *self._batch(scene, poses, batch))
             if stage != "instance" and done % cfg.occ_update_every == 0:
                 self.update_occupancy()
-            if log_every and (done % log_every == 0 or done == steps):
+            if log_every and (done % log_every < spc or done >= steps):
                 rate = cfg.n_rays * done / (time.time() - t0)
                 log(f"[{stage}] step {done}: " + " ".join(
                     f"{k}={float(v):.4f}" for k, v in last.items() if k != "total")

@@ -100,8 +100,53 @@ def test_mask_to_instance_head():
 
 
 def test_table_dtype_waits_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="table_dtype"):
-        TF.InstanceNGPFast(table_dtype="bfloat16")
+    """``table_dtype`` is ported: "bfloat16" reads the brick table in bf16,
+    any other value in f32 (the JAX module's mapping); the table stays f32."""
+    assert TF.InstanceNGPFast(n_levels=2, table_size=64,
+                              table_dtype="bfloat16").table_cast == torch.bfloat16
+    for td in (None, "float32"):
+        assert TF.InstanceNGPFast(n_levels=2, table_size=64, table_dtype=td).table_cast is None
+    assert TF.InstanceNGPFast(n_levels=2, table_size=64,
+                              table_dtype="bfloat16").brick_table.dtype == torch.float32
+
+
+def _bf16_representable(a):
+    a = np.array(a, np.float32)
+    return np.array_equal(a, torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("pallas_grad", [True, False])
+def test_brick_encode_bf16_table_matches_jax(pallas_grad):
+    """The bf16 table read: the forward to 1e-5; the f32 master table's
+    gradient through B3 (``pallas_grad``) is the f32 sum of the bf16 row
+    gradients on both sides (to 1e-5 of its max, not rounded to bf16);
+    without it both sides scatter in bf16, so every entry is
+    bf16-representable and the two agree to bf16 rounding of the sums."""
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(L, T, 8, F)).astype(np.float32)
+    xyz = _points(5)
+    tgt = rng.normal(size=(xyz.shape[0], L * F)).astype(np.float32)
+
+    def loss(tab):
+        out = JF.brick_encode(tab, jnp.asarray(xyz), RES, pallas_grad=pallas_grad,
+                              table_cast=jnp.bfloat16)
+        return jnp.sum((out - tgt) ** 2), out
+
+    (_, out_j), g_j = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(table))
+    tab = torch.from_numpy(table).requires_grad_(True)
+    out_t = TF.brick_encode(tab, torch.from_numpy(xyz), RES, pallas_grad=pallas_grad,
+                            table_cast=torch.bfloat16)
+    ((out_t - torch.from_numpy(tgt)) ** 2).sum().backward()
+    assert out_t.dtype == torch.float32 and tab.grad.dtype == torch.float32
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-5)
+    g_j, g_t = np.asarray(g_j), tab.grad.numpy()
+    scale = np.abs(g_j).max()
+    if pallas_grad:
+        np.testing.assert_allclose(g_t, g_j, rtol=1e-4, atol=1e-5 * scale)
+        assert not _bf16_representable(g_j) and not _bf16_representable(g_t)
+    else:
+        assert _bf16_representable(g_j) and _bf16_representable(g_t)
+        np.testing.assert_allclose(g_t, g_j, rtol=2 ** -6, atol=2 ** -8 * scale)
 
 
 def test_instance_ngp_fast_forward_after_conversion():

@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,7 +54,11 @@ def test_port_has_every_slice_module():
               "data.augment", "data.synthetic", "eval.metrics",
               # slice 5a: detector training
               "ops.sampling", "ops.projection", "parallel.train_step",
-              "train.checkpoints", "train.train_utils", "train.loop"):
+              "train.checkpoints", "train.train_utils", "train.loop",
+              # slice 6: the field's CLIs, fleets, mask projection and match_seg
+              "cli.run_instance_field", "cli.run_fleet", "train.multiscene",
+              "parallel.ngp_train_step", "eval.instance_field_metrics", "data.png",
+              "masks2d.project_masks", "masks2d.match_seg", "masks2d.coco_nyu40"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -126,6 +131,26 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         for mode in ("eval", "train"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli.main(["--mode", mode])
+    from instance_nerf_tpu_torch.cli import run_fleet, run_instance_field
+    from instance_nerf_tpu_torch.masks2d import project_masks
+    from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
+
+    for mode in ("train", "train_instance", "render", "extract_features", "benchmark"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_instance_field.main(["--mode", mode, "--n_levels", "2",
+                                     "--log2_table_size", "8"])
+    for mode in ("train", "train_instance", "benchmark"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_fleet.main(["--mode", mode, "--scenes", "nowhere"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiSceneFieldTrainer([], NGPConfig(n_levels=2, table_size=2 ** 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        project_masks.write_projections("nowhere", [[[0]]], [[[0.0]]], [], (1, 1, 0, 0),
+                                        (1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        project_masks.project_voxel_masks(np.zeros((2, 2, 2), np.int32),
+                                          np.zeros((2, 2, 2), np.float32), np.eye(4),
+                                          (1, 1, 0, 0), (1, 1))
 
 
 def test_nms_boxes_on_cpu_runs_plain_without_counting():

@@ -183,9 +183,15 @@ def test_dense_render_rays_and_k_buckets_raise():
     np.testing.assert_allclose(got.rgb.numpy(), np.asarray(want.rgb), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got.instance_logits.numpy(), np.asarray(want.instance_logits),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TR.render_rays(tf, torch.from_numpy(o), torch.from_numpy(d), occ=t_occ,
-                       k_buckets=((0.5, 4), (0.5, 8)))
+    # a bad k_buckets ladder raises up front, with the JAX package's messages
+    for ladder, msg in ((((0.75, 4), (0.5, 8)), "fractions sum to 1.2500 > 1"),
+                        (((0.5, 4), (0.5, 200)), r"K values \[200\] exceed n_samples=16")):
+        for mod, args in ((JR, (lambda p, x, v: jf(x, v), None, key, jnp.asarray(o),
+                                jnp.asarray(d))),
+                          (TR, (tf, torch.from_numpy(o), torch.from_numpy(d)))):
+            occ = (JR.OccupancyGrid(jnp.asarray(grid), 0.01) if mod is JR else t_occ)
+            with pytest.raises(ValueError, match=msg):
+                mod.render_rays(*args, n_samples=16, occ=occ, k_buckets=ladder)
 
 
 def test_update_occupancy_with_jax_jitter():
