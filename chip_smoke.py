@@ -47,6 +47,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    times on the scene's own NMS input beside its plain version and bound.
 8b. ``small_reference_fcos``: FCOS in f32 on a 64^3 grid, both box modes,
    card against the port's CPU reference.
+8b1. ``slice_backbones`` (main path of slice 5b): the detectors with the
+   Swin and ResNet backbones, full width, bf16, seeded random weights:
+   FCOS with ``swin_s`` at 160^3, AABB (B1, K = 10,000) and rotated (B2);
+   the rotated anchor RPN with ``resnet`` at 200x200x130 padded to
+   224x224x160 (B2, K = 4000); the RCNN with ``resnet`` at 200x200x132 (20
+   rois, B1). Each run's kernel must launch, its outputs equal a re-run
+   with the plain sweep; reports ``predict_scene`` ms (median of 10 warmed
+   runs), stage spans, peak bytes, busy share, top kernels and the device
+   time of the window attention and of the first conv (patch embed, stem).
+8b2. ``small_reference_backbones``: a swin_t-shaped Swin and the ResNet-FPN
+   at reduced depth and ``VGG_FPN(conv_at_start=True)``, f32 card against
+   CPU on every pyramid level (1e-4 of the level's max); one FCOS train
+   step with each of the first two in f64 (losses and gradients 1e-4); OBB
+   ``postprocess_detections(box_dim=8)`` on the card through B2 against the
+   CPU (keep set, labels, roi indices exact, OBBs 1e-5 of their max).
 8c. ``eval``: the eval modes through the CLIs on a 4-scene dataset
    written by the port's ``write_dataset``: ``run_fcos`` (both box modes),
    ``run_rpn`` exporting proposals, level features and voxel scores, and
@@ -60,15 +75,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bytes) and ``profile_train`` (spans forward, loss, backward, optimizer;
    busy share; top kernels). Every loss finite, ``total`` after 20 steps on
    the fixed batch below step 0.
-8e. ``small_reference_train``: one step of each trainer on the card
-   against the port's CPU run from the same weights, inputs and sampling
-   draws, in f64 (losses 1e-4, every gradient 1e-4 of its max), and one
-   f32 FCOS step's losses (1e-4).
+8e. ``small_reference_train``: one step of each trainer (VGG-AF, the
+   cells' VGG-EF cut in depth) on the card against the port's CPU run from
+   the same weights, inputs and sampling draws, in f64 (losses 1e-4, every
+   gradient 1e-4 of its max), and one f32 FCOS step's losses (1e-4).
 8f. ``train_loop``: ``--mode train`` of the three CLIs on a 4-scene
    dataset, 2 epochs with an eval each (B1 must launch in the AABB FCOS and
    RCNN evals, B2 in the rotated FCOS and RPN ones), the RCNN grafting the
    FCOS run's backbone, one checkpoint and ``best/`` kept, then
-   ``--resume`` starting at the saved step.
+   ``--resume`` starting at the saved step; then FCOS and the RCNN with
+   ``--device_data --steps_per_call 4`` (4 steps in 2 dispatches).
 9. ``slice_field`` (main path of slice 3): instance-field training through
    ``InstanceFieldTrainer.train`` at the JAX CLI's default model (hash
    encoding, 16 levels, T = 2^19, F = 2, resolutions 16..1024, width 64,
@@ -132,7 +148,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    launches on its path, error, times (``ms``, ``device_ms``) and bound;
    B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
    ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...)
-   and their launches in the train loops' evals (``launches_train_loop``);
+   and their launches in the train loops' evals (``launches_train_loop``)
+   and on the Swin and ResNet paths (``launches_backbones``);
    B3's its launches on the field CLI's and the fleet's paths
    (``launches_field_cli``, ``launches_field_cli_fast``,
    ``launches_fleet``) and the cases of the fleet step and the tpu_fast
@@ -443,7 +460,10 @@ def bench_inputs(rng, w=200, l=200, h=132, p=20):
     return grid, rois
 
 
-def phase_slice_rcnn():
+def phase_slice_rcnn(backbone="vgg_EF", phase="slice_rcnn"):
+    """NeRF-RCNN full inference at the bench configuration; with another
+    ``backbone`` (a line of ``phase``) also its stage profile and the
+    device time of its first conv."""
     import torch
 
     from instance_nerf_tpu_torch.kernels.nms_cuda import nms_boxes_plain
@@ -451,7 +471,8 @@ def phase_slice_rcnn():
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
 
     cfg = RCNNConfig(resolution=200, num_classes=11, dtype="bfloat16", eval_rois=20,
-                     box_nms_thresh=0.15, detections_per_img=25, seed=0)
+                     box_nms_thresh=0.15, detections_per_img=25, seed=0,
+                     backbone_type=backbone)
     trainer = RCNNTrainer(cfg, device="cuda")
     trainer.init_state()
     grid_np, rois = bench_inputs(np.random.default_rng(0))
@@ -514,14 +535,20 @@ def phase_slice_rcnn():
     times = times[2:]  # two more warm-up runs
     peak = int(torch.cuda.max_memory_allocated())
 
-    emit({"phase": "slice_rcnn", "grid": [200, 200, 132], "backbone": "vgg_EF",
-          "num_classes": 11, "rois": 20, "nms_candidates": int(nms_in[0].shape[0]),
-          "dtype": "bfloat16", "launches": launches, "first_call_s": round(first_s, 3),
-          "predict_scene_ms_median": float(np.median(times)),
-          "predict_scene_ms_all": [round(t, 3) for t in times],
-          "peak_mem_bytes": peak, "detections": n_det,
-          "mask_shape": list(masks.shape), "plain_nms_identical": True,
-          "same_as_predict_scene": same_as_predict})
+    line = {"phase": phase, "grid": [200, 200, 132], "backbone": backbone,
+            "num_classes": 11, "rois": 20, "nms_candidates": int(nms_in[0].shape[0]),
+            "dtype": "bfloat16", "launches": launches, "first_call_s": round(first_s, 3),
+            "predict_scene_ms_median": float(np.median(times)),
+            "predict_scene_ms_all": [round(t, 3) for t in times],
+            "peak_mem_bytes": peak, "detections": n_det,
+            "mask_shape": list(masks.shape), "plain_nms_identical": True,
+            "same_as_predict_scene": same_as_predict}
+    if backbone != "vgg_EF":
+        line["run"] = f"rcnn_{backbone}"
+        line["profile"] = trainer.profile(reps=5, shape=(200, 200, 132), top=16)
+        line["module_ms"] = module_times(trainer.model.backbone,
+                                         lambda: trainer.predict_scene(grid, rois))
+    emit(line)
     del trainer, grid, masks
     torch.cuda.empty_cache()
     return launches, nms_in
@@ -668,13 +695,17 @@ def phase_kernel_nms_iou():
     return timing
 
 
-def phase_slice_rpn():
+def phase_slice_rpn(backbone="vgg_EF", phase="slice_rpn"):
+    """Rotated anchor NeRF-RPN proposal inference at the RPN's benchmark
+    shape; with another ``backbone`` (a line of ``phase``) also the device
+    time of its first conv."""
     import torch
 
     from instance_nerf_tpu_torch.kernels.nms_cuda import nms_sweep_plain
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer, pad_to_32
 
-    cfg = RPNConfig(rotated_bbox=True, dtype="bfloat16", resolution=160, seed=0)
+    cfg = RPNConfig(rotated_bbox=True, dtype="bfloat16", resolution=160, seed=0,
+                    backbone_type=backbone)
     trainer = RPNTrainer(cfg, device="cuda")
     trainer.init_state()
     shape = (200, 200, 130)
@@ -725,16 +756,21 @@ def phase_slice_rpn():
     del feats, obj, reg, props_k, props_p
 
     bench = trainer.benchmark(reps=10, shape=shape)
-    prof = trainer.profile(reps=5, shape=shape)
-    emit({"phase": "slice_rpn", "grid": list(shape), "padded": [pad_to_32(d) for d in shape],
-          "backbone": "vgg_EF", "anchors_per_location": 13, "rotated_bbox": True,
-          "pre_nms_top_n": cfg.pre_nms_top_n, "post_nms_top_n": cfg.post_nms_top_n,
-          "nms_thresh": cfg.nms_thresh, "nms_candidates": k, "nms_swept": swept,
-          "dtype": "bfloat16",
-          "launches": launches, "first_call_s": round(first_s, 3),
-          "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
-          "plain_nms_identical": True, "same_as_predict_scene": True,
-          "predict_scene": bench, "profile": prof})
+    prof = trainer.profile(reps=5, shape=shape, top=12 if backbone == "vgg_EF" else 16)
+    line = {"phase": phase, "grid": list(shape), "padded": [pad_to_32(d) for d in shape],
+            "backbone": backbone, "anchors_per_location": 13, "rotated_bbox": True,
+            "pre_nms_top_n": cfg.pre_nms_top_n, "post_nms_top_n": cfg.post_nms_top_n,
+            "nms_thresh": cfg.nms_thresh, "nms_candidates": k, "nms_swept": swept,
+            "dtype": "bfloat16",
+            "launches": launches, "first_call_s": round(first_s, 3),
+            "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
+            "plain_nms_identical": True, "same_as_predict_scene": True,
+            "predict_scene": bench, "profile": prof}
+    if backbone != "vgg_EF":
+        line["run"] = f"rpn_rotated_{backbone}"
+        line["module_ms"] = module_times(trainer.model.backbone,
+                                         lambda: trainer.predict_scene(grid))
+    emit(line)
     del trainer, grid
     torch.cuda.empty_cache()
     return launches, (iou, svalid)
@@ -808,6 +844,59 @@ def phase_small_reference_rpn():
 
 # FCOS: 160^3 grid, 4 levels (40^3, 20^3, 10^3, 5^3) at the trainer's
 # defaults; each level takes min(2500, R) of the whole location vector R
+def module_times(backbone, run, reps=3) -> dict:
+    """Device ms per ``run()`` inside the backbone's window attention (all
+    blocks), its first conv (the Swin patch embed or the ResNet stem) and
+    the whole backbone, from CUDA events that forward hooks record around
+    each call (median of ``reps`` runs after one warm-up)."""
+    import torch
+
+    from instance_nerf_tpu_torch.models.swin import ShiftedWindowAttention3D
+
+    groups = {"backbone": [backbone],
+              "attention": [m for m in backbone.modules()
+                            if isinstance(m, ShiftedWindowAttention3D)],
+              "first_conv": [getattr(backbone, "patch_embed", None)
+                             or backbone.stem.conv]}
+    spans = {name: [] for name in groups}
+    handles = []
+
+    def hooks(name):
+        def pre(mod, args):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans[name].append([e])
+
+        def post(mod, args, out):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans[name][-1].append(e)
+
+        return pre, post
+
+    for name, mods in groups.items():
+        pre, post = hooks(name)
+        for m in mods:
+            handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        run()
+        torch.cuda.synchronize()
+        per_run = {name: [] for name in groups}
+        for _ in range(reps):
+            for v in spans.values():
+                v.clear()
+            run()
+            torch.cuda.synchronize()
+            for name, v in spans.items():
+                per_run[name].append(sum(a.elapsed_time(b) for a, b in v))
+    finally:
+        for h in handles:
+            h.remove()
+    out = {f"{name}_ms": float(np.median(v)) for name, v in per_run.items()}
+    out["attention_calls"] = len(groups["attention"])
+    return out
+
+
 FCOS_GRID = (160, 160, 160)
 # small_reference_fcos: the seeded cls and centerness kernels times these
 # put the 64^3 grid's proposal scores 1e-5 apart or more (the CPU run reads
@@ -815,10 +904,13 @@ FCOS_GRID = (160, 160, 160)
 FCOS_REF_SCALE = {"aabb": 5.0, "rotated": 7.0}
 
 
-def fcos_mode(rotated, grid):
+def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     """One box mode of the FCOS slice: the main path with its launches
     counted, the post-processing re-run with the plain sweep (outputs must
-    be equal), then the scene's NMS input, ``benchmark`` and ``profile``."""
+    be equal), then the scene's NMS input (the kernel timed on it with
+    ``time_nms``), ``benchmark`` and ``profile``; for a Swin or ResNet
+    backbone also the device time of its attention and its first conv
+    (``module_times``)."""
     import torch
 
     from instance_nerf_tpu_torch.kernels.nms_cuda import (
@@ -829,7 +921,7 @@ def fcos_mode(rotated, grid):
     )
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
 
-    cfg = FCOSConfig(rotated_bbox=rotated, dtype="bfloat16", seed=0)
+    cfg = FCOSConfig(rotated_bbox=rotated, dtype="bfloat16", seed=0, backbone_type=backbone)
     trainer = FCOSTrainer(cfg, device="cuda")
     trainer.init_state()
     mode = "obb" if rotated else "aabb"
@@ -892,20 +984,28 @@ def fcos_mode(rotated, grid):
     keep = kernel(x, svalid, cfg.nms_thresh)
     if not torch.equal(keep, plain(x, svalid, cfg.nms_thresh)):
         raise AssertionError(f"FCOS {mode}: kernel disagrees on the scene's NMS input")
-    timing = nms_times({}, lambda: kernel(x, svalid, cfg.nms_thresh), reps=20, dev_reps=20)
-    timing["plain_ms"] = cuda_ms(lambda: plain(x, svalid, cfg.nms_thresh), reps=1, warmup=0)
-    bound = (sweep_bound_ms if rotated else nms_bound_ms)(keep, svalid)
-    timing["bound_ms"], timing["bound_by"] = bound
+    timing = {}
+    if time_nms:
+        timing = nms_times({}, lambda: kernel(x, svalid, cfg.nms_thresh), reps=20,
+                           dev_reps=20)
+        timing["plain_ms"] = cuda_ms(lambda: plain(x, svalid, cfg.nms_thresh), reps=1,
+                                     warmup=0)
+        bound = (sweep_bound_ms if rotated else nms_bound_ms)(keep, svalid)
+        timing["bound_ms"], timing["bound_by"] = bound
     nms = {"k": k, "valid": n_valid, "swept": swept, "kept": int(keep.sum()),
            "launches": launches["nms_sweep" if rotated else "nms_boxes"], **timing}
     del x, svalid, keep
 
     bench = trainer.benchmark(reps=10, shape=FCOS_GRID)
-    prof = trainer.profile(reps=5, shape=FCOS_GRID)
-    report = {"box_mode": mode, "launches": launches, "first_call_s": round(first_s, 3),
+    prof = trainer.profile(reps=5, shape=FCOS_GRID, top=16)
+    report = {"box_mode": mode, "backbone": backbone, "launches": launches,
+              "first_call_s": round(first_s, 3),
               "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
               "plain_nms_identical": True, "same_as_predict_scene": same_as_predict,
               "nms": nms, "predict_scene": bench, "profile": prof}
+    if backbone != "vgg_EF":
+        report["module_ms"] = module_times(trainer.model.backbone,
+                                           lambda: trainer.predict_scene(grid))
     del trainer
     torch.cuda.empty_cache()
     return report
@@ -926,6 +1026,37 @@ def phase_slice_fcos():
           "num_convs": 4, "pre_nms_top_n": 2500, "fpn_post_nms_top_n": 2500,
           "nms_thresh": 0.3, "dtype": "bfloat16", **modes})
     return modes
+
+
+def phase_slice_backbones(smi):
+    """The detectors with the ResNet and Swin backbones (main path of slice
+    5b), full width, seeded random weights, bf16: FCOS with ``swin_s`` at
+    160^3, AABB through B1 (K = 10,000) and rotated through the rotated IoU
+    and B2; the rotated anchor RPN with ``resnet`` at 200x200x130 padded to
+    224x224x160 (K = 4000 into B2); the RCNN with ``resnet`` at 200x200x132
+    (20 rois, 25 detections, B1). Each run: its launches counted (the
+    counts zeroed just before it, at least one launch of its kernel), its
+    proposals or detections equal to a re-run with the plain sweep,
+    ``predict_scene`` ms (median of 10 warmed runs), the stage spans, peak
+    bytes, the busy share, and the device time of the attention and of the
+    first conv."""
+    import torch
+
+    grid = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (*FCOS_GRID, 4)).astype(np.float32)).to("cuda")
+    out = {}
+    for rotated in (False, True):
+        name = f"fcos_{'rotated' if rotated else 'aabb'}_swin_s"
+        rep = fcos_mode(rotated, grid, backbone="swin_s", time_nms=False)
+        emit({"phase": "slice_backbones", "run": name, "grid": list(FCOS_GRID),
+              "dtype": "bfloat16", "nvidia_smi": smi, **rep})
+        out[name] = rep["launches"]
+    del grid
+    torch.cuda.empty_cache()
+    out["rpn_rotated_resnet"], _ = phase_slice_rpn("resnet", phase="slice_backbones")
+    out["rcnn_resnet"], _ = phase_slice_rcnn("resnet", phase="slice_backbones")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_small_reference_fcos():
@@ -999,6 +1130,136 @@ def phase_small_reference_fcos():
 
 
 # the keys each trainer's eval writes (the JAX trainers' own)
+# small_reference_backbones: a swin_t-shaped Swin and the resnet ResNet-FPN,
+# each cut to depth (2, 2, 2, 2) and (1, 1, 1, 1), on a 32^3 grid
+REF_SWIN = dict(embed_dim=96, depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24))
+REF_RESNET = dict(layers=(1, 1, 1, 1), in_planes=64, is_max_pool=True)
+
+
+def phase_small_reference_backbones():
+    """The new backbones on the card (f32, TF32 off) against the port's CPU
+    run from the same seeded weights, on a 32^3 grid, batch 2:
+
+    * every pyramid level of a swin_t-shaped Swin (embed 96, heads (3, 6,
+      12, 24), depths cut to (2, 2, 2, 2)), of the ``resnet`` ResNet-FPN cut
+      to one bottleneck a stage, and of ``VGG_FPN(conv_at_start=True)``
+      (vgg_AF): to 1e-4 of the level's largest entry;
+    * one FCOS train step with each of the first two, in f64: losses to 1e-4
+      relative, every gradient to 1e-4 of its tensor's largest entry;
+    * ``postprocess_detections(box_dim=8)`` of 200 rois x 10 classes: the
+      card through B2 (launched), the CPU through its plain sweep; keep set,
+      labels and roi indices exact, OBBs to 1e-5 of their largest entry
+      (the card's and the CPU's sin, cos and atan2 differ by an ulp), the
+      decided IoUs at least 1e-5 from the threshold."""
+    import copy
+
+    import torch
+
+    from instance_nerf_tpu_torch.models.backbones import ResNet_FPN_256, VGG_FPN
+    from instance_nerf_tpu_torch.models.fcos import FCOSOverNeRF, init_fcos_head
+    from instance_nerf_tpu_torch.models.rcnn import postprocess_detections
+    from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN
+    from instance_nerf_tpu_torch.ops.boxes import small_box_mask
+    from instance_nerf_tpu_torch.ops.coders import MidpointOffsetCoder
+    from instance_nerf_tpu_torch.ops.rotated_iou import pairwise_iou_3d
+    from instance_nerf_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_fcos_train_step,
+        make_optimizer,
+    )
+    from instance_nerf_tpu_torch.train.loop import synthetic_batch
+    from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {"phase": "small_reference_backbones", "grid": [32, 32, 32], "batch": 2,
+              "swin": REF_SWIN, "resnet": REF_RESNET,
+              "tolerance": {"levels_rel_f32": 1e-4, "losses_rel_f64": 1e-4,
+                            "grads_of_max_f64": 1e-4, "obb_boxes_rel": 1e-5,
+                            "discrete": "identical"}}
+    failed = []
+    x = torch.from_numpy(np.random.default_rng(12).uniform(
+        0, 1, (2, 32, 32, 32, 4)).astype(np.float32))
+    factories = {"swin": lambda: SwinTransformerFPN(**REF_SWIN),
+                "resnet": lambda: ResNet_FPN_256(**REF_RESNET),
+                "vgg_conv_at_start": lambda: VGG_FPN("AF", conv_at_start=True)}
+    for seed, (name, build) in enumerate(factories.items()):
+        cpu = build()
+        init_rcnn_params(cpu, seed)
+        card = copy.deepcopy(cpu).to("cuda")
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to("cuda"))
+        errs = [float((g.cpu() - w).abs().max()) / (float(w.abs().max()) or 1.0)
+                for g, w in zip(got, want)]
+        report[f"{name}_levels_max_rel_err"] = errs
+        if max(errs) > 1e-4:
+            failed.append(f"{name}: a level differs by {max(errs)} of its max")
+    # one FCOS step in f64
+    arrays = synthetic_batch(2, (32, 32, 32), 6, 6)
+    for seed, name in enumerate(("swin", "resnet")):
+        cpu = FCOSOverNeRF(factories[name](), num_convs=2)
+        init_rcnn_params(cpu.backbone, seed)
+        init_fcos_head(cpu.head, torch.Generator().manual_seed(seed + 1))
+        run = {}
+        for device in ("cuda", "cpu"):
+            model = copy.deepcopy(cpu).to(device=device, dtype=torch.float64)
+            args = [torch.as_tensor(a, device=device) for a in arrays]
+            args = [a.double() if a.is_floating_point() else a for a in args]
+            state = TrainState(model, make_optimizer(model.named_parameters()))
+            _, metrics = make_fcos_train_step(model)(state, *args)
+            run[device] = (model, {k: float(v) for k, v in metrics.items()})
+        (mc, lc), (mp, lp) = run["cuda"], run["cpu"]
+        loss_err = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lp)
+        grads = dict(mp.named_parameters())
+        grad_err = max(float((p.grad.cpu() - grads[n].grad).abs().max())
+                       / max(float(grads[n].grad.abs().max()), 1e-30)
+                       for n, p in mc.named_parameters() if p.grad is not None
+                       and float(grads[n].grad.abs().max()) > 1e-12)
+        report[f"fcos_step_{name}"] = {"losses": lp, "max_rel_err_losses": loss_err,
+                                       "max_grad_err": grad_err}
+        if loss_err > 1e-4 or grad_err > 1e-4:
+            failed.append(f"fcos step with {name}: losses {loss_err}, gradients {grad_err}")
+    # OBB detections through B2
+    rng = np.random.default_rng(13)
+    p, c = 200, 11
+    lo = rng.uniform(0, 120, (1, p, 3))
+    props = np.concatenate([lo, lo + rng.uniform(8, 40, (1, p, 3))], -1).astype(np.float32)
+    args = [rng.normal(0, 2.0, (1, p, c)).astype(np.float32),
+            rng.normal(0, 0.2, (1, p, c, 8)).astype(np.float32), props,
+            np.ones((1, p), bool), np.asarray([[160.0, 160, 130]], np.float32)]
+    kw = dict(score_thresh=0.0, nms_thresh=0.15, detections_per_img=100, box_dim=8)
+    zero_launches()
+    det_c = postprocess_detections(*(torch.from_numpy(a).to("cuda") for a in args), **kw)
+    launches = read_launches()
+    det_p = postprocess_detections(*map(torch.from_numpy, args), **kw)
+    same = {f: bool(torch.equal(getattr(det_c, f).cpu(), getattr(det_p, f)))
+            for f in ("valid", "labels", "roi_index")}
+    box_err = float((det_c.boxes.cpu() - det_p.boxes).abs().max()) / float(
+        det_p.boxes.abs().max())
+    # the IoUs the sweep decides on: the valid decoded OBBs of each class
+    dec = MidpointOffsetCoder().decode(torch.from_numpy(args[1][0]),
+                                       torch.from_numpy(props[0])[:, None])
+    margin = 1.0
+    for cls in range(1, c):
+        b = dec[:, cls][small_box_mask(dec[:, cls], 1e-2)].double()
+        iou = pairwise_iou_3d(b, b)
+        off = ~torch.eye(b.shape[0], dtype=torch.bool)
+        margin = min(margin, float((iou[off] - 0.15).abs().min()))
+    report["obb_detections"] = {"launches": launches, "discrete_identical": same,
+                                "max_rel_box_err": box_err, "kept": int(det_p.valid.sum()),
+                                "candidates": p * (c - 1), "iou_margin_to_0.15": margin}
+    if launches["nms_sweep"] < 1:
+        failed.append(f"OBB detections did not launch B2: {launches}")
+    if margin < 1e-5:
+        failed.append("an OBB IoU lies within 1e-5 of 0.15")
+    if not all(same.values()) or box_err > 1e-5:
+        failed.append(f"OBB detections: card vs CPU {same}, boxes {box_err}")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 PROPOSAL_METRICS = sorted([f"recall_{t}_top{n}" for t in (25, 50) for n in (300, 1000, "all")]
                           + ["recall_25", "recall_50", "ar", "ap_25", "ap_50"])
 RCNN_METRICS = sorted([f"{k}_{t}" for k in ("box_mAP", "box_AR", "mask_mAP", "mask_AR")
@@ -2034,6 +2295,11 @@ TRAIN_CELLS = {
     "fcos_rotated": dict(kind="fcos", rotated=True, shape=(160, 160, 160)),
     "rpn_rotated": dict(kind="rpn", rotated=True, shape=(200, 200, 130)),
     "rcnn": dict(kind="rcnn", rotated=False, shape=(160, 160, 160)),
+    # slice 5b: the Swin and ResNet backbones
+    "fcos_aabb_swin_s": dict(kind="fcos", rotated=False, shape=(160, 160, 160),
+                             backbone_type="swin_s"),
+    "rpn_rotated_resnet": dict(kind="rpn", rotated=True, shape=(200, 200, 130),
+                               backbone_type="resnet"),
 }
 
 
@@ -2050,31 +2316,50 @@ def make_trainer(kind, rotated, device, **cfg):
 
 
 def phase_slice_train(smi):
-    """Detector training on the card (main path of slice 5a): for each cell,
-    ``benchmark_train_step`` (3 warm-up and 18 timed steps, CUDA events, on
-    the trainer's synthetic batch of 4 scenes, seeded random weights, bf16
-    compute; the lr of the first steps of a 1000-step one-cycle schedule,
-    whose warm-up a train loop starts with) and ``profile_train`` (spans
-    forward, loss, backward, optimizer; the device's busy share). Every loss
-    of every step must be finite and ``total`` after 20 updates on the fixed
-    batch lower than at step 0."""
+    """Detector training on the card (main path of slice 5a, and of 5b for
+    the Swin and ResNet cells): for each cell, ``benchmark_train_step`` (3
+    warm-up and 18 timed steps, CUDA events, on the trainer's synthetic
+    batch of 4 scenes, seeded random weights, bf16 compute; the lr of the
+    first steps of a 1000-step one-cycle schedule, whose warm-up a train
+    loop starts with) and ``profile_train`` (spans forward, loss, backward,
+    optimizer; the device's busy share). A cell that does not fit at batch 4
+    runs at the largest batch that does (2, then 1), its out-of-memory
+    error recorded. Every loss of every step must be finite and ``total``
+    after 20 updates on the fixed batch lower than at step 0."""
     import torch
 
     failed = []
     out = {}
     for name, cell in TRAIN_CELLS.items():
-        tr = make_trainer(cell["kind"], cell["rotated"], "cuda")
-        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
-        zero_launches()
-        t0 = time.perf_counter()
-        bench = tr.benchmark_train_step(reps=18, warmup=3, shape=cell["shape"], batch=4)
-        prof = tr.profile_train(reps=3, warmup=1, shape=cell["shape"], batch=4, top=8)
+        backbone = cell.get("backbone_type", "vgg_EF")
+        oom = []
+        for batch in (4, 2, 1):
+            tr = make_trainer(cell["kind"], cell["rotated"], "cuda", backbone_type=backbone)
+            tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+            zero_launches()
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                bench = tr.benchmark_train_step(reps=18, warmup=3, shape=cell["shape"],
+                                                batch=batch)
+                prof = tr.profile_train(reps=3, warmup=1, shape=cell["shape"], batch=batch,
+                                        top=8)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                oom.append({"batch": batch,
+                            "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                            "error": str(e).splitlines()[0][:200]})
+                del tr
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError(f"{name}: no batch fits the card: {oom}")
         launches = read_launches()
         losses = bench.pop("losses")
         finite = all(np.isfinite(v) for m in losses for v in m.values())
         first, last = losses[0]["total"], losses[20]["total"]
-        line = {"phase": "slice_train", "cell": name, "batch": 4, "shape": list(cell["shape"]),
-                "dtype": "bfloat16", "step_ms_median": bench["median_ms"],
+        line = {"phase": "slice_train", "cell": name, "batch": batch,
+                "shape": list(cell["shape"]), "backbone": backbone, "dtype": "bfloat16",
+                "out_of_memory": oom, "step_ms_median": bench["median_ms"],
                 "step_ms_mean": bench["mean_ms"], "step_ms_min": bench["min_ms"],
                 "scenes_per_s": bench["scenes_per_s"], "peak_mem_bytes": bench["peak_mem_bytes"],
                 "warmup_s": bench["warmup_s"], "spans_ms": prof["stages_ms_median"],
@@ -2113,11 +2398,17 @@ def _grad_errors(cuda_model, cpu_model):
     return above, trunk
 
 
+# small_reference_train's backbone: VGG-AF, the VGG-EF of the cells cut in
+# depth (8 convs for 16) to keep its CPU side, an f64 step, short
+REF_TRAIN_BACKBONE = "vgg_AF"
+
+
 def phase_small_reference_train():
     """One train step of each trainer on the card against the port's CPU run
     from the same seeded weights, inputs and sampling draws (passed in), on
-    a 40x32x24 grid, batch 2, in f64: the losses must agree to 1e-4
-    relative and every gradient to 1e-4 of its tensor's largest entry. In
+    a 40x32x24 grid, batch 2, VGG-AF (``REF_TRAIN_BACKBONE``), in f64: the
+    losses must agree to 1e-4 relative and every gradient to 1e-4 of its
+    tensor's largest entry. In
     f32 (TF32 off) a conv's sums round otherwise on the card, ReLU inputs
     within rounding of 0 fall on either side and the gradients under a
     ReLU chain (the VGG trunk, FCOS's GroupNorm towers, the RPN and mask
@@ -2130,6 +2421,7 @@ def phase_small_reference_train():
 
     shape = (40, 32, 24)
     report = {"phase": "small_reference_train", "grid": list(shape), "batch": 2,
+              "backbone": REF_TRAIN_BACKBONE,
               "tolerance": {"losses_rel": 1e-4, "grads_of_max_f64": 1e-4}}
     failed = []
     rng = np.random.default_rng(11)
@@ -2158,12 +2450,14 @@ def phase_small_reference_train():
             extra = {"uniforms": torch.rand((2, 2, 22), generator=torch.Generator().manual_seed(1),
                                             dtype=getattr(torch, dtype))}
             cfg = dict(dtype="float32", resolution=40, batch_size_per_image=64, max_gt=6,
-                       max_rois=16, freeze_backbone=name == "rcnn_frozen", seed=5)
+                       max_rois=16, freeze_backbone=name == "rcnn_frozen", seed=5,
+                       backbone_type=REF_TRAIN_BACKBONE)
         else:
             grids, sizes, boxes, mask = synthetic_batch(2, shape, 6, box_dim)
             args = [grids, sizes, boxes, mask]
             extra = {}
-            cfg = dict(dtype="float32", max_gt=6, seed=5, resolution=40)
+            cfg = dict(dtype="float32", max_gt=6, seed=5, resolution=40,
+                       backbone_type=REF_TRAIN_BACKBONE)
             if kind == "rpn":
                 cfg["batch_size_per_mesh"] = 64
         run = {}
@@ -2207,7 +2501,10 @@ def phase_train_loop():
     backbone, each 2 epochs with an eval every epoch (B1 in the AABB evals,
     B2 in the rotated ones: each must launch), then ``run_fcos --resume`` to
     a third epoch, which must start at the saved step. ``keep_checkpoints``
-    1: one step directory and ``best/`` must be left."""
+    1: one step directory and ``best/`` must be left. Then ``run_fcos`` and
+    ``run_rcnn`` once more with ``--device_data --steps_per_call 4`` at
+    batch 1: 4 steps in 2 dispatches, the same checkpoint rule, B1 in their
+    evals."""
     import contextlib
     import io
     import os
@@ -2280,6 +2577,20 @@ def phase_train_loop():
         if resumed["start_epoch"] != 2 or resumed["gstep"] != first["gstep"] * 3 // 2:
             failed.append(f"resume started at epoch {resumed['start_epoch']}, "
                           f"step {resumed['gstep']}")
+        # the device-resident store and 4 steps a dispatch (slice 5b): batch
+        # 1, so each epoch's 2 steps go in one call
+        one = common[:common.index("--batch_size") + 1] + ["1"] + common[
+            common.index("--batch_size") + 2:]
+        for name, main_fn, argv in (
+                ("fcos_aabb_device_data", run_fcos.main,
+                 one + proposal("aabb") + ["--rot_scale_prob", "0"]),
+                ("rcnn_device_data", run_rcnn.main,
+                 one + ["--dataset_root", roots["aabb"], "--rpn_ckpt", fcos_dir])):
+            _, summary = train(name, main_fn, argv + ["--device_data", "--steps_per_call", "4"],
+                               "nms_boxes")
+            if (summary["steps"], summary["calls"], summary["gstep"]) != (4, 2, 4):
+                failed.append(f"{name}: {summary['steps']} steps in {summary['calls']} "
+                              f"calls, global step {summary['gstep']}; expected 4 in 2")
     emit(report)
     if failed:
         raise AssertionError("; ".join(failed))
@@ -2344,6 +2655,8 @@ def main():
 
     fcos = phase_slice_fcos()
     phase_small_reference_fcos()
+    backbones = phase_slice_backbones(smi)
+    launches_obb_rcnn = phase_small_reference_backbones()
     phase_eval()
     phase_slice_train(smi)
     phase_small_reference_train()
@@ -2374,7 +2687,10 @@ def main():
         "bound_by": bound_by, "library_ms": None,
         "k": int(sboxes.shape[0]),
         "k10400": timing["k10400"],
-        "launches_train_loop": {k: launches_train[k] for k in ("fcos_aabb", "rcnn")},
+        "launches_train_loop": {k: launches_train[k] for k in (
+            "fcos_aabb", "rcnn", "fcos_aabb_device_data", "rcnn_device_data")},
+        "launches_backbones": {k: backbones[k]["nms_boxes"] for k in (
+            "fcos_aabb_swin_s", "rcnn_resnet")},
         **fcos_entry(fcos["aabb"]["nms"]),
     }, {
         "name": "nms_sweep", "route": "cuda",
@@ -2387,6 +2703,9 @@ def main():
         "bound_by": bound_iou_by, "library_ms": None,
         "k": int(iou.shape[0]), "kept": kept,
         "launches_train_loop": {k: launches_train[k] for k in ("fcos_rotated", "rpn_rotated")},
+        "launches_backbones": {k: backbones[k]["nms_sweep"] for k in (
+            "fcos_rotated_swin_s", "rpn_rotated_resnet")},
+        "launches_obb_rcnn_reference": launches_obb_rcnn["nms_sweep"],
         "random_k4000": timing_iou["k4000"],
         **fcos_entry(fcos["obb"]["nms"]),
     }, {

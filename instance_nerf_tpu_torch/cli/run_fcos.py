@@ -1,6 +1,6 @@
 """FCOS NeRF-RPN CLI on PyTorch (the argparse surface of
-``instance_nerf_tpu.cli.run_fcos``, plus ``--device``, ``--dtype`` and
-``--grid``).
+``instance_nerf_tpu.cli.run_fcos``, plus ``--device``, ``--dtype``,
+``--grid`` and ``--device_data``).
 
 Modes: ``train`` (``FCOSTrainer.train_loop``: checkpoints under
 ``--save_path``, an eval of the val split every ``--eval_interval`` epochs;
@@ -13,6 +13,8 @@ checkpoint directory of the port or a flax params ``.npz``.
 
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode train --features_path D/features \
         --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT
+    python -m instance_nerf_tpu_torch.cli.run_fcos --mode train --backbone_type swin_s \
+        --device_data --rot_scale_prob 0 --steps_per_call 4 --features_path D/features ...
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode check_arch --device cpu --rotated_bbox
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode eval --features_path D/features \
         --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT --save_results
@@ -68,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["iou", "linear_iou", "giou", "diou", "smooth_l1"])
     p.add_argument("--use_additional_l1_loss", action="store_true")
     p.add_argument("--proj2d_loss_weight", type=float, default=0.0)
-    p.add_argument("--steps_per_call", type=int, default=1)
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="train steps a dispatch (run one after another)")
+    p.add_argument("--device_data", action="store_true",
+                   help="hold the train split on the card; needs --rot_scale_prob 0")
     p.add_argument("--conv_at_start", action="store_true")
     # inference
     p.add_argument("--pre_nms_top_n", type=int, default=2500)

@@ -1,5 +1,6 @@
 """NeRF-RCNN CLI on PyTorch (same argparse surface as
-``instance_nerf_tpu.cli.run_rcnn``, plus ``--device``).
+``instance_nerf_tpu.cli.run_rcnn``, plus ``--device``, ``--dtype``,
+``--grid`` and ``--device_data``).
 
 Modes: ``train`` (``RCNNTrainer.train_loop`` on the dataset's precomputed
 rois, the backbone grafted from ``--rpn_ckpt``: checkpoints under
@@ -73,7 +74,10 @@ def build_parser():
     p.add_argument("--eval_rois", type=int, default=20)
     p.add_argument("--max_gt", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--steps_per_call", type=int, default=1)
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="train steps a dispatch (run one after another)")
+    p.add_argument("--device_data", action="store_true",
+                   help="hold the train split on the card")
     return p
 
 
@@ -100,6 +104,7 @@ def config_from_args(args):
         eval_interval=args.eval_interval,
         keep_checkpoints=args.keep_checkpoints,
         steps_per_call=args.steps_per_call,
+        device_data=args.device_data,
         freeze_backbone=args.freeze_backbone,
         batch_size_per_image=args.batch_size_per_image,
         positive_fraction=args.positive_fraction,

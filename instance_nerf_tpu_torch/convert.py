@@ -9,7 +9,9 @@ Mappings:
 * Dense kernel ``(in, out)`` -> ``(out, in)``; ``fc6`` takes the pooled
   ``(5, 5, 5, C)`` features flattened channels-last in both packages, so
   its columns need no permutation;
-* GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+* GroupNorm and LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+* the Swin attention's ``rel_pos_bias_table`` carries over as it is (its
+  ``patch_embed`` is a 5-D conv kernel like any other);
 * ``ConvTranspose`` (``conv5_mask``) kernel DHWIO -> ``(I, O, D, H, W)``
   **flipped spatially**: flax's ``nn.ConvTranspose`` (``transpose_kernel=
   False``) with k2 s2 SAME computes ``y[2i + a] = x[i] k[1 - a]`` where
@@ -71,8 +73,8 @@ def rcnn_params_from_jax(params) -> dict[str, torch.Tensor]:
             name = "weight"
         elif leaf == "scale":
             name = "weight"
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf in ("bias", "rel_pos_bias_table"):
+            name = leaf
         else:
             raise ValueError(f"unexpected param {'/'.join(path)}")
         key = ".".join([_RENAME.get(m, m) for m in mods] + [name])

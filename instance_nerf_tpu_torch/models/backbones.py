@@ -1,13 +1,29 @@
 """3D conv backbones producing 4-level 256-channel pyramids (PyTorch
 counterpart of ``instance_nerf_tpu.models.backbones``): VGG-FPN with the
-split stage configs AF / DF / EF. Input ``(N, W, L, H, 4)``; outputs are
-channels-last at strides {4, 8, 16, 32}."""
+split stage configs AF / DF / EF, the ResNet-FPNs (``Bottleneck``,
+``ResNet_FPN_256`` / ``ResNet_FPN_64``) and the single-level
+``ResNetSimplified``; the 3D Swin Transformer is in ``swin.py``. Input
+``(N, W, L, H, C)``; outputs are channels-last, at strides {4, 8, 16, 32}
+for the backbones ``build_backbone`` returns. Every backbone exposes
+``out_channels``. Module names are flax's (``ConvBlock_0``, ``stem``,
+``layer{i}_block{b}``, ``lat_i``, ...), so ``convert.py`` maps a flax
+params tree onto them.
+"""
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch.nn as nn
+import torch.nn.functional as F
 
 from instance_nerf_tpu_torch.models.fpn import FPN
-from instance_nerf_tpu_torch.models.layers import ConvBlock, max_pool_3d
+from instance_nerf_tpu_torch.models.layers import (
+    Conv3d,
+    ConvBlock,
+    max_pool_3d,
+    upsample_nearest_to,
+)
+from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN, swin_config
 
 # "M" = maxpool, "F" = stage boundary (feature tap)
 VGG_CFGS = {
@@ -26,10 +42,17 @@ class VGG_FPN(nn.Module):
                  input_size: int = 160, conv_at_start: bool = False,
                  out_channels: int = 256, dtype=None):
         super().__init__()
+        self.input_size, self.conv_at_start = input_size, conv_at_start
+        self.out_channels = out_channels
         if conv_at_start:
-            raise NotImplementedError(
-                "VGG_FPN(conv_at_start=True) comes with slice 5b (ROADMAP queue A)")
-        self.input_size = input_size
+            # two 32-channel convs ahead of the stem, and a stride-4 branch
+            # projected to 128 channels and added to the first tap
+            self.start_conv1 = ConvBlock(in_channels, 32, dtype=dtype)
+            self.start_conv2 = ConvBlock(32, 32, dtype=dtype)
+            self.ds_conv1 = ConvBlock(32, 32, stride=2, dtype=dtype)
+            self.ds_conv2 = ConvBlock(32, 32, stride=2, dtype=dtype)
+            self.ds_proj = ConvBlock(32, 128, kernel=1, dtype=dtype)
+            in_channels = 32
         # stem: stride 4 (conv s2 + pool) for large grids, stride 1 for small
         stride = 2 if input_size >= 160 else 1
         self.stem = ConvBlock(in_channels, 64, kernel=7, stride=stride, dtype=dtype)
@@ -50,6 +73,10 @@ class VGG_FPN(nn.Module):
         self.fpn = FPN(tap_channels[-4:], out_channels, num_outs=4, dtype=dtype)
 
     def forward(self, x):
+        x_ds = None
+        if self.conv_at_start:
+            x = self.start_conv2(self.start_conv1(x))
+            x_ds = self.ds_proj(self.ds_conv2(self.ds_conv1(x)))
         x = self.stem(x)
         if self.input_size >= 160:
             x = max_pool_3d(x, window=3, stride=2)
@@ -58,21 +85,158 @@ class VGG_FPN(nn.Module):
             for kind, name in stage:
                 x = max_pool_3d(x, 2, 2) if kind == "pool" else getattr(self, name)(x)
             features.append(x)
+        if x_ds is not None:
+            features[0] = features[0] + x_ds
         return self.fpn(features[-4:])
+
+
+class Bottleneck(nn.Module):
+    """3D ResNet bottleneck: 1x1 stride-s, 3x3, 1x1 to ``planes * 4``, plus
+    the input (through the 1x1 ``downsample`` where the stride or the width
+    changes), then ReLU."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, expansion: int = 4,
+                 dtype=None):
+        super().__init__()
+        out_ch = planes * expansion
+        self.ConvBlock_0 = ConvBlock(in_ch, planes, kernel=1, stride=stride, dtype=dtype)
+        self.ConvBlock_1 = ConvBlock(planes, planes, kernel=3, dtype=dtype)
+        self.ConvBlock_2 = ConvBlock(planes, out_ch, kernel=1, use_relu=False, dtype=dtype)
+        self.downsample = (ConvBlock(in_ch, out_ch, kernel=1, stride=stride, use_relu=False,
+                                     dtype=dtype)
+                           if stride != 1 or in_ch != out_ch else None)
+        self.out_ch = out_ch
+
+    def forward(self, x):
+        y = self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(x)))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+def _resnet_layers(module: nn.Module, in_ch: int, base: int, layers: Sequence[int],
+                   dtype) -> list[int]:
+    """Add the ``layer{i}_block{b}`` bottlenecks (``base * 2^i`` planes,
+    stride 2 at the first block of every stage after the first); returns
+    each stage's output width."""
+    widths = []
+    for i, depth in enumerate(layers):
+        for b in range(depth):
+            block = Bottleneck(in_ch, base * 2 ** i, stride=2 if i > 0 and b == 0 else 1,
+                               dtype=dtype)
+            module.add_module(f"layer{i}_block{b}", block)
+            in_ch = block.out_ch
+        widths.append(in_ch)
+    return widths
+
+
+def _run_layers(module: nn.Module, x, layers: Sequence[int]):
+    outs = []
+    for i, depth in enumerate(layers):
+        for b in range(depth):
+            x = getattr(module, f"layer{i}_block{b}")(x)
+        outs.append(x)
+    return outs
+
+
+class ResNet_FPN_256(nn.Module):
+    """ResNet-FPN with its own top-down pathway: ``len(layers)`` levels at
+    ``out_channels``, strides {2 * 2^i}, or {4 * 2^i} with ``is_max_pool``.
+    ``lat_0`` takes the last stage; ``lat_{i+1}`` and ``smooth_i`` the
+    stage ``i + 1`` from the top."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), in_planes: int = 64,
+                 is_max_pool: bool = False, out_channels: int = 256, in_channels: int = 4,
+                 dtype=None):
+        super().__init__()
+        self.layers, self.is_max_pool = tuple(layers), is_max_pool
+        self.out_channels = out_channels
+        self.stem = ConvBlock(in_channels, in_planes, kernel=7, stride=2, dtype=dtype)
+        widths = _resnet_layers(self, in_planes, in_planes, self.layers, dtype)
+        self.lat_0 = Conv3d(widths[-1], out_channels, 1, dtype=dtype)
+        for i in range(len(self.layers) - 1):
+            self.add_module(f"lat_{i + 1}",
+                            Conv3d(widths[-2 - i], out_channels, 1, dtype=dtype))
+            self.add_module(f"smooth_{i}", Conv3d(out_channels, out_channels, 3, dtype=dtype))
+
+    def forward(self, x):
+        x = self.stem(x)
+        if self.is_max_pool:
+            x = max_pool_3d(x, window=3, stride=2)
+        c_out = _run_layers(self, x, self.layers)
+        p_out = [self.lat_0(c_out[-1])]
+        for i in range(len(self.layers) - 1):
+            lat = getattr(self, f"lat_{i + 1}")(c_out[-2 - i])
+            p = upsample_nearest_to(p_out[i], lat.shape[1:4]) + lat
+            p_out.append(getattr(self, f"smooth_{i}")(p))
+        return tuple(reversed(p_out))
+
+
+class ResNet_FPN_64(nn.Module):
+    """The stride-1-stem variant for 64^3 grids: a 16-channel stem,
+    bottlenecks of 16 * 2^i planes, a 64-channel pyramid (``top`` on the
+    last stage, ``lat_i`` / ``smooth_i`` below it)."""
+
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), out_channels: int = 64,
+                 in_channels: int = 4, dtype=None):
+        super().__init__()
+        self.layers, self.out_channels = tuple(layers), out_channels
+        self.stem = ConvBlock(in_channels, 16, kernel=7, stride=1, dtype=dtype)
+        widths = _resnet_layers(self, 16, 16, self.layers, dtype)
+        self.top = Conv3d(widths[-1], out_channels, 1, dtype=dtype)
+        for i in range(len(self.layers) - 1):
+            self.add_module(f"lat_{i}", Conv3d(widths[-2 - i], out_channels, 1, dtype=dtype))
+            self.add_module(f"smooth_{i}", Conv3d(out_channels, out_channels, 3, dtype=dtype))
+
+    def forward(self, x):
+        c_out = _run_layers(self, self.stem(x), self.layers)
+        p_out = [self.top(c_out[-1])]
+        for i in range(len(self.layers) - 1):
+            lat = getattr(self, f"lat_{i}")(c_out[-2 - i])
+            p = upsample_nearest_to(p_out[-1], lat.shape[1:4]) + lat
+            p_out.append(getattr(self, f"smooth_{i}")(p))
+        return tuple(reversed(p_out))
+
+
+class ResNetSimplified(nn.Module):
+    """Single-level debug backbone: a k7 stem (stride 2 and a pool with
+    ``downsample``) and ``num_residuals`` two-conv residual blocks."""
+
+    def __init__(self, out_channels: int = 64, num_residuals: int = 3,
+                 downsample: bool = False, in_channels: int = 4, dtype=None):
+        super().__init__()
+        self.out_channels, self.num_residuals = out_channels, num_residuals
+        self.downsample = downsample
+        self.stem = ConvBlock(in_channels, out_channels, kernel=7,
+                              stride=2 if downsample else 1, dtype=dtype)
+        for i in range(num_residuals):
+            self.add_module(f"res{i}_a", ConvBlock(out_channels, out_channels, dtype=dtype))
+            self.add_module(f"res{i}_b", ConvBlock(out_channels, out_channels, use_relu=False,
+                                                   dtype=dtype))
+
+    def forward(self, x):
+        x = self.stem(x)
+        if self.downsample:
+            x = max_pool_3d(x, window=3, stride=2)
+        for i in range(self.num_residuals):
+            y = getattr(self, f"res{i}_b")(getattr(self, f"res{i}_a")(x))
+            x = F.relu(x + y)
+        return (x,)
 
 
 def build_backbone(backbone_type: str, input_size: int = 160,
                    in_channels: int = 4, conv_at_start: bool = False,
                    dtype=None):
-    """Backbone factory (``vgg_AF`` / ``vgg_DF`` / ``vgg_EF``)."""
+    """Backbone factory: ``vgg_AF`` / ``vgg_DF`` / ``vgg_EF``, ``resnet``
+    (``ResNet_FPN_256``, max-pooled stem from ``input_size`` 160 up) and
+    ``swin_t`` / ``swin_s`` / ``swin_b`` / ``swin_l``."""
     if backbone_type.startswith("vgg"):
         cfg = backbone_type.split("_")[1] if "_" in backbone_type else "EF"
         return VGG_FPN(cfg=cfg, in_channels=in_channels, input_size=input_size,
                        conv_at_start=conv_at_start, dtype=dtype)
     if backbone_type == "resnet":
-        raise NotImplementedError(
-            "the ResNet-FPN backbone comes with slice 5b (ROADMAP queue A)")
+        return ResNet_FPN_256(is_max_pool=input_size >= 160, in_channels=in_channels,
+                              dtype=dtype)
     if backbone_type.startswith("swin"):
-        raise NotImplementedError(
-            "the Swin backbone comes with slice 5b (ROADMAP queue A)")
+        return SwinTransformerFPN(**swin_config(backbone_type), in_channels=in_channels,
+                                  dtype=dtype)
     raise ValueError(f"Unknown backbone type: {backbone_type}")

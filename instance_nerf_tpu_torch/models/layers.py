@@ -74,11 +74,12 @@ class Conv3d(nn.Module):
 class Linear(nn.Module):
     """flax ``nn.Dense``; ``weight`` is (out, in)."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=None):
+    def __init__(self, in_features: int, out_features: int, dtype=None,
+                 bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x):
         return F.linear(_cast(x, self.dtype), _cast(self.weight, self.dtype),
@@ -113,17 +114,39 @@ class GroupNorm(nn.Module):
         return y.to(self.dtype or x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis, as ``GroupNorm`` computes
+    it: statistics in f32 or wider, ``var = E[x^2] - E[x]^2`` clipped at 0;
+    the output in ``dtype``, else in the promoted type."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype or y.dtype)
+
+
 class ConvBlock(nn.Module):
-    """Conv3D -> GroupNorm -> ReLU."""
+    """Conv3D -> GroupNorm -> ReLU (the ReLU left out with ``use_relu=False``)."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
-                 stride: int = 1, groups: int = 32, dtype=None):
+                 stride: int = 1, groups: int = 32, use_relu: bool = True,
+                 dtype=None):
         super().__init__()
+        self.use_relu = use_relu
         self.conv = Conv3d(in_ch, features, kernel, stride, dtype=dtype)
         self.norm = GroupNorm(min(groups, features), features, dtype=dtype)
 
     def forward(self, x):
-        return F.relu(self.norm(self.conv(x)))
+        x = self.norm(self.conv(x))
+        return F.relu(x) if self.use_relu else x
 
 
 def max_pool_3d(x: torch.Tensor, window: int = 2, stride: int = 2,

@@ -4,8 +4,9 @@ chain (PyTorch counterpart of ``instance_nerf_tpu.models.rcnn``).
 Training: match the proposals (the gt appended) to the gt, draw a balanced
 sample, pack it stably into fixed slots, then the classification, box and
 mask losses. Inference: softmax -> per-class decode -> clip -> small-box
-mask -> per-class NMS (kernel B1 through ``ops/nms.py``) -> top-k -> mask
-head -> mask paste.
+mask -> per-class NMS (kernel B1 through ``ops/nms.py``; with OBB deltas,
+``box_dim = 8``, the rotated IoU swept by kernel B2) -> top-k -> mask head
+-> mask paste.
 Pooled features keep the JAX layout ``(K, ow, ol, oh, C)``, so ``fc6``
 takes them flattened channels-last exactly as the flax head does.
 """
@@ -20,8 +21,13 @@ import torch.nn.functional as F
 from instance_nerf_tpu_torch.models.fcos import optax_sigmoid_ce, smooth_l1
 from instance_nerf_tpu_torch.models.layers import Conv3d, Linear, _cast, to_ncdhw, to_ndhwc
 from instance_nerf_tpu_torch.ops import nms as nms_ops
-from instance_nerf_tpu_torch.ops.boxes import box_iou_3d, clip_boxes_to_mesh, small_box_mask
-from instance_nerf_tpu_torch.ops.coders import AABBCoder
+from instance_nerf_tpu_torch.ops.boxes import (
+    box_iou_3d,
+    clip_boxes_to_mesh,
+    obb2hbb_3d,
+    small_box_mask,
+)
+from instance_nerf_tpu_torch.ops.coders import AABBCoder, MidpointOffsetCoder
 from instance_nerf_tpu_torch.ops.mask_paste import paste_masks_in_image
 from instance_nerf_tpu_torch.ops.poolers import multiscale_roi_align_3d
 from instance_nerf_tpu_torch.ops.roi_align import roi_align_3d
@@ -120,7 +126,7 @@ def _pack(mask: torch.Tensor, size: int):
 def select_training_samples(
     proposals: torch.Tensor,  # (N, P, 6)
     prop_valid: torch.Tensor,  # (N, P)
-    gt_boxes: torch.Tensor,  # (N, K, 6)
+    gt_boxes: torch.Tensor,  # (N, K, 6|7)
     gt_labels: torch.Tensor,  # (N, K)
     gt_mask: torch.Tensor,  # (N, K)
     batch_size_per_image: int = 512,
@@ -135,21 +141,21 @@ def select_training_samples(
     """Per scene: label the proposals (the gt appended) by IoU with the low-
     quality matches recovered, draw a balanced sample (``uniforms`` per
     scene, else drawn from ``generator``), pack it into min(S, P + K) slots
-    and encode the box targets. ``box_dim = 8`` (OBB RCNN) raises."""
-    if box_dim != 6:
-        raise NotImplementedError("OBB RCNN training (box_dim = 8) comes with slice 5b "
-                                  "(ROADMAP queue A)")
-    coder = AABBCoder()
+    and encode the box targets. ``box_dim = 8`` (OBB RCNN): the gt are
+    ``(N, K, 7)`` OBBs, matched (and appended) by their AABB
+    (``obb2hbb_3d``), and the targets are ``MidpointOffsetCoder`` deltas."""
+    coder = MidpointOffsetCoder() if box_dim == 8 else AABBCoder()
+    gt_aabb = gt_boxes if gt_boxes.shape[-1] == 6 else obb2hbb_3d(gt_boxes)
     if append_gt:
-        proposals = torch.cat([proposals, gt_boxes], dim=1)
+        proposals = torch.cat([proposals, gt_aabb], dim=1)
         prop_valid = torch.cat([prop_valid, gt_mask], dim=1)
     if uniforms is None:
         n, p = prop_valid.shape
         uniforms = torch.rand((n, 2, p), generator=generator, device=prop_valid.device)
     out = []
-    for props, pvalid, gtb, gtl, gtm, u in zip(proposals, prop_valid, gt_boxes,
-                                                gt_labels, gt_mask, uniforms):
-        quality = box_iou_3d(gtb, props)  # (K, P)
+    for props, pvalid, gtb, gta, gtl, gtm, u in zip(proposals, prop_valid, gt_boxes,
+                                                     gt_aabb, gt_labels, gt_mask, uniforms):
+        quality = box_iou_3d(gta, props)  # (K, P)
         quality = torch.where(gtm[:, None], quality, torch.full_like(quality, -1.0))
         quality = torch.where(pvalid[None, :], quality, torch.full_like(quality, -1.0))
         matched = match_proposals(quality, fg_iou_thresh, bg_iou_thresh,
@@ -178,6 +184,13 @@ def fastrcnn_loss(class_logits, box_regression, labels, reg_targets, valid):
     deltas, both over the sampled count, in f32.
 
     class_logits (N, S, C); box_regression (N, S, C, D); labels, valid (N, S)."""
+    if box_regression.shape[-1] != reg_targets.shape[-1]:
+        # the JAX OBB RCNN step fails here too: its sampler encodes AABB
+        # targets for the 8-delta head (ROADMAP, known gaps of the reference)
+        raise ValueError(
+            f"fastrcnn_loss: {box_regression.shape[-1]} box deltas against "
+            f"{reg_targets.shape[-1]}-wide targets; the reference's OBB RCNN train step "
+            "samples without box_dim and fails at this point")
     class_logits = class_logits.float()
     box_regression = box_regression.float()
     safe_labels = labels.clamp_min(0)
@@ -219,7 +232,7 @@ def maskrcnn_loss(mask_logits, boxes, gt_masks, labels, matched_idx, valid):
 
 
 class Detections(NamedTuple):
-    boxes: torch.Tensor  # (N, D, 6)
+    boxes: torch.Tensor  # (N, D, 6), (N, D, 7) OBBs with box_dim = 8
     scores: torch.Tensor  # (N, D)
     labels: torch.Tensor  # (N, D)
     valid: torch.Tensor  # (N, D)
@@ -228,7 +241,7 @@ class Detections(NamedTuple):
 
 def postprocess_detections(
     class_logits: torch.Tensor,  # (N, P, C)
-    box_regression: torch.Tensor,  # (N, P, C, 6)
+    box_regression: torch.Tensor,  # (N, P, C, 6|8)
     proposals: torch.Tensor,  # (N, P, 6)
     prop_valid: torch.Tensor,  # (N, P)
     grid_sizes: torch.Tensor,  # (N, 3)
@@ -239,10 +252,11 @@ def postprocess_detections(
     nms_sweep=None,
 ) -> Detections:
     """Fixed-shape detections per scene; invalid slots carry score and
-    label 0. ``nms_sweep`` replaces the NMS sweep (see ``ops.nms.nms_mask``)."""
-    if box_dim != 6:
-        raise NotImplementedError("OBB detections come with slice 5b (ROADMAP queue A)")
-    coder = AABBCoder()
+    label 0. ``box_dim = 8`` decodes ``MidpointOffsetCoder`` deltas to
+    ``(N, D, 7)`` OBBs, unclipped, through the OBB NMS (the rotated IoU of
+    the valid candidates swept by kernel B2). ``nms_sweep`` replaces the NMS
+    sweep (see ``ops.nms.nms_mask``)."""
+    coder = MidpointOffsetCoder() if box_dim == 8 else AABBCoder()
     n, p, c = class_logits.shape
     dev = class_logits.device
     outs = []
@@ -251,8 +265,9 @@ def postprocess_detections(
         props, pvalid = proposals[i], prop_valid[i]
         cand_boxes, cand_scores, cand_labels, cand_valid = [], [], [], []
         for cls in range(1, c):  # drop background class 0
-            b = clip_boxes_to_mesh(coder.decode(box_regression[i, :, cls], props),
-                                   grid_sizes[i])
+            b = coder.decode(box_regression[i, :, cls], props)
+            if box_dim == 6:
+                b = clip_boxes_to_mesh(b, grid_sizes[i])
             sc = scores[:, cls]
             cand_boxes.append(b)
             cand_scores.append(sc)

@@ -1,6 +1,6 @@
 """Box-delta coders (PyTorch counterpart of ``instance_nerf_tpu.ops.coders``):
-``AABBCoder`` and the midpoint-offset OBB coder. ``RotatedCoder`` (the
-legacy two-stage path) is not in the port yet."""
+``AABBCoder``, the 7-parameter ``RotatedCoder`` (the legacy two-stage
+path) and the midpoint-offset OBB coder."""
 from __future__ import annotations
 
 import math
@@ -40,6 +40,47 @@ class AABBCoder:
         pred_whd = torch.exp(d_whd) * whd
         half = 0.5 * pred_whd
         return torch.cat([pred_ctr - half, pred_ctr + half], dim=-1)
+
+
+class RotatedCoder:
+    """7-param OBB deltas: the center offset in the anchor's rotated frame,
+    log sizes, and the angle difference over 2*pi, wrapped into
+    (-pi/2, pi/2] at decode (``%`` is ``jnp.remainder``, so
+    ``torch.remainder``, the sign of the divisor)."""
+
+    def __init__(self, bbox_xform_clip: float = BBOX_XFORM_CLIP):
+        self.bbox_xform_clip = bbox_xform_clip
+
+    def encode(self, gt_rois: torch.Tensor, ex_rois: torch.Tensor) -> torch.Tensor:
+        """(..., 7) gt + (..., 7) anchors -> (..., 7) deltas."""
+        coord = gt_rois[..., 0:3] - ex_rois[..., 0:3]
+        c, s = torch.cos(ex_rois[..., 6]), torch.sin(ex_rois[..., 6])
+        ew = ex_rois[..., 3].clamp_min(1e-6)
+        eh = ex_rois[..., 4].clamp_min(1e-6)
+        ed = ex_rois[..., 5].clamp_min(1e-6)
+        dx = (c * coord[..., 0] + s * coord[..., 1]) / ew
+        dy = (-s * coord[..., 0] + c * coord[..., 1]) / eh
+        dz = coord[..., 2] / ed
+        dw = torch.log(gt_rois[..., 3].clamp_min(1e-6) / ew)
+        dh = torch.log(gt_rois[..., 4].clamp_min(1e-6) / eh)
+        dd = torch.log(gt_rois[..., 5].clamp_min(1e-6) / ed)
+        da = (gt_rois[..., 6] - ex_rois[..., 6]) / (2 * math.pi)
+        return torch.stack([dx, dy, dz, dw, dh, dd, da], dim=-1)
+
+    def decode(self, deltas: torch.Tensor, ex_rois: torch.Tensor) -> torch.Tensor:
+        """(..., 7) deltas + (..., 7) anchors -> (..., 7) OBBs."""
+        c, s = torch.cos(ex_rois[..., 6]), torch.sin(ex_rois[..., 6])
+        dw = deltas[..., 3].clamp_max(self.bbox_xform_clip)
+        dh = deltas[..., 4].clamp_max(self.bbox_xform_clip)
+        dd = deltas[..., 5].clamp_max(self.bbox_xform_clip)
+        w, h, d = ex_rois[..., 3], ex_rois[..., 4], ex_rois[..., 5]
+        px = deltas[..., 0] * w * c - deltas[..., 1] * h * s + ex_rois[..., 0]
+        py = deltas[..., 0] * w * s + deltas[..., 1] * h * c + ex_rois[..., 1]
+        pz = deltas[..., 2] * d + ex_rois[..., 2]
+        pw, ph, pd = torch.exp(dw) * w, torch.exp(dh) * h, torch.exp(dd) * d
+        pa = torch.remainder((2 * math.pi) * deltas[..., 6] + ex_rois[..., 6], math.pi)
+        pa = torch.where(pa > math.pi / 2, pa - math.pi, pa)
+        return torch.stack([px, py, pz, pw, ph, pd, pa], dim=-1)
 
 
 class MidpointOffsetCoder:

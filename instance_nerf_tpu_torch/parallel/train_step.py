@@ -1,6 +1,7 @@
 """Training steps on one device (PyTorch counterpart of
-``instance_nerf_tpu.parallel.train_step``; the mesh-sharded steps and the
-multi-step ``lax.scan`` dispatch come with slice 5b).
+``instance_nerf_tpu.parallel.train_step``; the mesh-sharded steps come
+with slice 7, and the ``lax.scan`` dispatch of several steps is the train
+loops' ``steps_per_call``, ``train/loop.py``).
 
 ``make_optimizer`` is the JAX package's recipe, written out in optax's op
 order: clip by global norm (``(g / norm) * max_norm`` where the norm

@@ -3,11 +3,12 @@ counterpart of ``instance_nerf_tpu.train.fcos_trainer``).
 
 ``FCOSTrainer`` runs on ``device="cuda"`` unless the caller asks for the
 CPU; with no CUDA device it raises. ``train_loop`` trains on the augmented
-train split one step per dispatch (``steps_per_call > 1`` and the
-device-resident store ``device_data`` come with slice 5b), evaluating and
-checkpointing as the JAX trainer does. ``predict_scene`` pads a scene's grid
-to multiples of 32, runs the backbone and the FCOS head and post-processes
-the locations of the un-padded region: in AABB mode the NMS is kernel B1,
+train split, evaluating and checkpointing as the JAX trainer does:
+``steps_per_call`` steps a dispatch, and with ``device_data`` from the
+train split held on the card (grids in bf16), batches gathered there by
+scene index and augmented there (``device_augment``). ``predict_scene``
+pads a scene's grid to multiples of 32, runs the backbone and the FCOS head
+and post-processes the locations of the un-padded region: in AABB mode the NMS is kernel B1,
 in OBB mode the rotated IoU of the valid candidates swept by kernel B2.
 """
 from __future__ import annotations
@@ -36,7 +37,12 @@ from instance_nerf_tpu_torch.parallel.train_step import (
     make_optimizer,
 )
 from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager, load_params_into
-from instance_nerf_tpu_torch.train.loop import device_batch, synthetic_batch, train_epochs
+from instance_nerf_tpu_torch.train.loop import (
+    device_batch,
+    device_indices,
+    synthetic_batch,
+    train_epochs,
+)
 from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
 from instance_nerf_tpu_torch.train.rpn_trainer import (
     eval_proposals,
@@ -50,9 +56,8 @@ log = logging.getLogger("fcos_trainer")
 
 @dataclass
 class FCOSConfig:
-    """The JAX package's ``FCOSConfig``. ``n_spatial`` (the mesh's spatial
-    axis) is accepted and unused on one card; ``steps_per_call > 1`` and
-    ``device_data`` raise in ``train_loop`` (slice 5b)."""
+    """The JAX package's ``FCOSConfig``. ``n_spatial > 1`` (a mesh's spatial
+    axis over several cards) raises: the multi-card steps come with slice 7."""
 
     # data
     features_path: str = ""
@@ -156,6 +161,9 @@ def init_fcos_params(model: FCOSOverNeRF, seed: int) -> None:
 class FCOSTrainer:
     def __init__(self, cfg: FCOSConfig | None = None, device="cuda"):
         self.cfg = cfg = cfg or FCOSConfig()
+        if cfg.n_spatial > 1:
+            raise NotImplementedError("n_spatial > 1 (a spatial mesh over several cards) "
+                                      "comes with slice 7 (ROADMAP queue A)")
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
@@ -166,7 +174,8 @@ class FCOSTrainer:
         backbone = build_backbone(cfg.backbone_type, input_size=max(cfg.resolution, 160),
                                   in_channels=cfg.input_dim,
                                   conv_at_start=cfg.conv_at_start, dtype=self.dtype)
-        self.model = FCOSOverNeRF(backbone, fpn_strides=cfg.fpn_strides,
+        self.model = FCOSOverNeRF(backbone, out_channels=backbone.out_channels,
+                                  fpn_strides=cfg.fpn_strides,
                                   num_convs=cfg.num_convs,
                                   norm_reg_targets=cfg.norm_reg_targets,
                                   centerness_on_reg=cfg.centerness_on_reg,
@@ -226,16 +235,48 @@ class FCOSTrainer:
             proj2d_loss_weight=cfg.proj2d_loss_weight, remat=cfg.remat,
             stage=stage or self._train_stage)
 
+    def device_store(self, ds: RPNDataset) -> dict:
+        """The split on the card, uploaded once a scene at a time: each scene
+        padded to the resolution without augmentation, grids in bf16."""
+        cfg, dev = self.cfg, self.device
+        pad = (cfg.resolution,) * 3
+        n = len(ds)
+        grids = torch.empty((n, *pad, 4), dtype=torch.bfloat16, device=dev)
+        fields = {"grid_sizes": [], "gt_boxes": [], "gt_mask": []}
+        for i in range(n):
+            b = ds.batch([i], pad, max_gt=cfg.max_gt, box_dim=7 if cfg.rotated_bbox else 6)
+            grids[i] = torch.as_tensor(b.grids[0], device=dev)
+            for f, v in fields.items():
+                v.append(getattr(b, f)[0])
+        store = {f: torch.as_tensor(np.stack(v), device=dev) for f, v in fields.items()}
+        store["grids"] = grids
+        return store
+
+    def store_batch(self, store: dict, idx, draws: torch.Tensor):
+        """Scenes ``idx`` gathered from ``store`` and augmented on the card by
+        ``device_augment`` (``draws`` (B, 3): each scene's rot90 and two flip
+        uniforms), as the JAX trainer's index step does: (grids f32 (the bf16
+        values), grid sizes, gt boxes, gt mask)."""
+        cfg = self.cfg
+        it = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=self.device)
+        g, s, bx = (store[f][it] for f in ("grids", "grid_sizes", "gt_boxes"))
+        out = [device_augment(g[i], s[i], bx[i], cfg.flip_prob, cfg.rotate_prob,
+                              cfg.rotated_bbox, draws[i]) for i in range(it.shape[0])]
+        g, s, bx = (torch.stack(f) for f in zip(*out))
+        return g.float(), s, bx, store["gt_mask"][it]
+
     def train_loop(self) -> dict:
         """Train on the augmented train split (resuming from ``save_path``'s
         latest checkpoint with ``resume``); returns the loop's summary
-        (``train/loop.py:train_epochs``)."""
+        (``train/loop.py:train_epochs``). With ``device_data`` the split is
+        held on the card and each batch's augmentation uniforms come from a
+        generator on the card seeded ``seed + 17 + start_epoch`` (the JAX
+        loop's key), the epochs' permutations from ``default_rng(seed +
+        start_epoch)``."""
         cfg = self.cfg
-        if cfg.steps_per_call > 1:
-            raise NotImplementedError("steps_per_call > 1 comes with slice 5b "
-                                      "(ROADMAP queue A)")
-        if cfg.device_data:
-            raise NotImplementedError("device_data comes with slice 5b (ROADMAP queue A)")
+        if cfg.device_data and cfg.rot_scale_prob > 0:
+            raise ValueError("device_data cannot replicate the host-side rotate+scale "
+                             "resample; set rot_scale_prob=0 or device_data=False")
         train_ds = self.make_dataset("train")
         val_ds = self.make_dataset("val") if cfg.dataset_split else None
         steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
@@ -249,13 +290,23 @@ class FCOSTrainer:
         step_fn = self.train_step_fn()
         pad_shape = (cfg.resolution,) * 3
         box_dim = 7 if cfg.rotated_bbox else 6
+        loop_kw = {}
+        if cfg.device_data:
+            store = self.device_store(train_ds)
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17 + start_epoch)
+            loop_kw = dict(rng=np.random.default_rng(cfg.seed + start_epoch),
+                           epoch_indices=device_indices("tile"))
 
-        def load(idx):
-            return train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim,
-                                  augment=True)
+            def load(idx):
+                draws = torch.rand((len(idx), 3), generator=gen, device=self.device)
+                return self.store_batch(store, idx, draws)
+        else:
+            def load(idx):
+                return device_batch(train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt,
+                                                   box_dim=box_dim, augment=True), self.device)
 
         def step(batch):
-            self.state, metrics = step_fn(self.state, *device_batch(batch, self.device))
+            self.state, metrics = step_fn(self.state, *batch)
             return metrics
 
         def save(gstep, metrics):
@@ -263,7 +314,7 @@ class FCOSTrainer:
 
         return train_epochs(cfg, len(train_ds), start_epoch, load, step,
                             evaluate=(lambda: self.eval(val_ds)) if val_ds else None,
-                            save=save if self.ckpt else None, log=log)
+                            save=save if self.ckpt else None, log=log, **loop_kw)
 
     def _card_train_batch(self, batch, shape):
         if self.device.type != "cuda":

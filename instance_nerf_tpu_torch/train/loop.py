@@ -2,12 +2,16 @@
 
 ``train_epochs`` is the JAX trainers' epoch loop: a permutation of the
 train split per epoch from ``default_rng(seed)``, the last partial batch
-padded from the epoch's first scenes, one host read of ``total`` per step,
-a log line every ``log_interval`` steps, and at the end of an epoch the
-eval and checkpoint rules of the FCOS trainer (the superset of the three):
-eval and save with the metrics every ``eval_interval`` epochs when there is
-a val split, else save then; save every ``save_interval`` epochs; save at
-the end.
+padded from the epoch's first scenes, and at the end of an epoch the eval
+and checkpoint rules of the FCOS trainer (the superset of the three): eval
+and save with the metrics every ``eval_interval`` epochs when there is a
+val split, else save then; save every ``save_interval`` epochs; save at
+the end. A dispatch runs ``steps_per_call`` steps (fewer at an epoch's
+end): it loads their batches, then runs them one after another (the JAX
+package scans them in one dispatch), then reads ``total`` once, and logs
+when the global step passed a multiple of ``log_interval`` in it. The
+device-resident loops of the JAX trainers draw their batches otherwise
+(``device_indices``).
 """
 from __future__ import annotations
 
@@ -18,50 +22,88 @@ import numpy as np
 import torch
 
 
+def padded_indices(rng, n_scenes: int, bs: int, steps: int) -> list:
+    """The host loaders' batches of an epoch, ``steps`` rows of scene
+    indices: a permutation, the last partial batch padded from its first
+    scenes."""
+    order = rng.permutation(n_scenes)
+    rows = []
+    for s in range(steps):
+        idx = order[s * bs:(s + 1) * bs]
+        if len(idx) < bs:  # pad the last partial batch
+            idx = np.concatenate([idx, order[:bs - len(idx)]])
+        rows.append(idx)
+    return rows
+
+
+def device_indices(repeat: str):
+    """The JAX trainers' device-resident batches of an epoch: a permutation
+    cut to ``steps * bs`` (the tail dropped). A split smaller than a batch is
+    tiled (``repeat="tile"``, FCOS) or drawn with repeats
+    (``repeat="draw"``, RCNN: ``rng.integers`` after the permutation)."""
+
+    def indices(rng, n_scenes: int, bs: int, steps: int) -> np.ndarray:
+        order = rng.permutation(n_scenes)
+        n_used = steps * bs
+        if repeat == "draw" and n_scenes < bs:
+            order = rng.integers(0, n_scenes, bs)
+        elif repeat == "tile" and n_used > len(order):
+            order = np.tile(order, -(-n_used // len(order)))
+        return order[:n_used].reshape(steps, bs)
+
+    return indices
+
+
 def train_epochs(cfg, n_scenes: int, start_epoch: int, load, step, evaluate=None,
-                 save=None, log: logging.Logger | None = None) -> dict:
+                 save=None, log: logging.Logger | None = None, rng=None,
+                 epoch_indices=padded_indices) -> dict:
     """Train from ``start_epoch`` to ``cfg.num_epochs`` (or
     ``stop_after_epochs`` epochs, where the config has it).
 
-    ``load(indices)`` builds a host batch, ``step(batch)`` runs one update and
+    ``load(indices)`` builds a batch, ``step(batch)`` runs one update and
     returns its metrics (device tensors), ``evaluate()`` the val metrics or
     None without a val split, ``save(gstep, metrics)`` writes a checkpoint.
-    Returns a summary: epochs and steps run, host seconds spent loading
-    batches and stepping, the last step's metrics and the last eval's."""
+    ``rng`` (default ``default_rng(cfg.seed)``) and ``epoch_indices(rng,
+    n_scenes, bs, steps)`` draw each epoch's batches. Returns a summary:
+    epochs, steps and dispatches run, seconds spent loading batches and
+    stepping, the last step's metrics and the last eval's."""
     log = log or logging.getLogger("train")
     bs = cfg.batch_size
+    spc = max(1, getattr(cfg, "steps_per_call", 1))
     steps_per_epoch = max(1, n_scenes // bs)
-    rng = np.random.default_rng(cfg.seed)
+    rng = rng if rng is not None else np.random.default_rng(cfg.seed)
     gstep = start_epoch * steps_per_epoch
     end_epoch = cfg.num_epochs
     stop_after = getattr(cfg, "stop_after_epochs", 0)
     if stop_after:
         end_epoch = min(end_epoch, start_epoch + max(0, stop_after))
     save_interval = getattr(cfg, "save_interval", 0)
-    out = {"start_epoch": start_epoch, "epochs": 0, "steps": 0, "data_s": 0.0,
+    out = {"start_epoch": start_epoch, "epochs": 0, "steps": 0, "calls": 0, "data_s": 0.0,
            "step_s": 0.0, "last": None, "eval": None}
     for epoch in range(start_epoch, end_epoch):
-        order = rng.permutation(n_scenes)
+        idxs = epoch_indices(rng, n_scenes, bs, steps_per_epoch)
         t0 = time.perf_counter()
-        for s in range(steps_per_epoch):
-            idx = order[s * bs:(s + 1) * bs]
-            if len(idx) < bs:  # pad the last partial batch
-                idx = np.concatenate([idx, order[:bs - len(idx)]])
+        s = 0
+        while s < steps_per_epoch:
+            chunk = min(spc, steps_per_epoch - s)
             t1 = time.perf_counter()
-            batch = load(idx)
+            batches = [load(idxs[s + j]) for j in range(chunk)]
             t2 = time.perf_counter()
-            metrics = step(batch)
-            # one read a step: the update is done before the next is queued
+            for batch in batches:
+                metrics = step(batch)
+            # one read a dispatch: its updates are done before the next is queued
             total = float(metrics["total"])
             t3 = time.perf_counter()
             out["data_s"] += t2 - t1
             out["step_s"] += t3 - t2
-            gstep += 1
-            out["steps"] += 1
-            if gstep % cfg.log_interval == 0:
+            gstep += chunk
+            s += chunk
+            out["steps"] += chunk
+            out["calls"] += 1
+            if gstep % cfg.log_interval < chunk:
                 log.info("epoch %d step %d: total=%.4f %s (%.2fs/it)", epoch, gstep, total,
                          " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()
-                                  if k != "total"), (time.perf_counter() - t0) / (s + 1))
+                                  if k != "total"), (time.perf_counter() - t0) / s)
         out["epochs"] += 1
         out["last"] = {k: float(v) for k, v in metrics.items()}
         at_eval = (epoch + 1) % cfg.eval_interval == 0

@@ -5,11 +5,20 @@
 CPU; with no CUDA device it raises instead of carrying on on the CPU.
 ``train_loop`` trains the backbone (grafted from an FCOS or RPN checkpoint
 with ``rpn_ckpt``) and the RoI heads on a ``SegmentationDataset``'s
-precomputed rois, one step per dispatch; ``freeze_backbone`` computes the
-features outside autograd and leaves the backbone out of the optimizer.
-``eval`` scores the detections and masks (box and mask mAP / AR at IoU 0.25
-and 0.5). OBB RCNN, ``steps_per_call > 1`` and the device-resident store
-``device_data`` come with slice 5b.
+precomputed rois, ``steps_per_call`` steps a dispatch; ``freeze_backbone``
+computes the features outside autograd and leaves the backbone out of the
+optimizer. ``device_data`` holds the train split on the card (grids in
+bf16, or with ``freeze_backbone`` their FPN features, and the voxel masks
+bit-packed) and gathers each batch there by scene index. ``eval`` scores
+the detections and masks (box and mask mAP / AR at IoU 0.25 and 0.5).
+
+``bbox_type="obb"`` builds the 8-delta box head and decodes as the JAX
+trainer does: its ``predict_scene`` and its train step pass no ``box_dim``,
+so the detections are the AABB decode of the first six deltas, and a train
+step raises ``ValueError`` in ``fastrcnn_loss`` (8 deltas against 6-wide
+targets), where the JAX step fails (ROADMAP, known gaps of the reference).
+The OBB functions themselves (``models/rcnn.py`` with ``box_dim = 8``) are
+complete.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from instance_nerf_tpu_torch.models.rcnn import (
     postprocess_detections,
     select_training_samples,
 )
-from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm, Linear
+from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm, LayerNorm, Linear
+from instance_nerf_tpu_torch.models.swin import ShiftedWindowAttention3D
 from instance_nerf_tpu_torch.ops.nms import no_stage
 from instance_nerf_tpu_torch.parallel.train_step import TrainState, apply_step, make_optimizer
 from instance_nerf_tpu_torch.train.checkpoints import (
@@ -47,7 +57,7 @@ from instance_nerf_tpu_torch.train.checkpoints import (
     load_params,
     load_params_into,
 )
-from instance_nerf_tpu_torch.train.loop import device_batch, train_epochs
+from instance_nerf_tpu_torch.train.loop import device_batch, device_indices, train_epochs
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
 from instance_nerf_tpu_torch.train.train_utils import partition_optimizer
 
@@ -60,8 +70,7 @@ BATCH_FIELDS = ("grids", "grid_sizes", "rois", "roi_mask", "gt_boxes", "gt_label
 
 @dataclass
 class RCNNConfig:
-    """The JAX package's ``RCNNConfig``; ``steps_per_call > 1`` and
-    ``device_data`` raise in ``train_loop`` (slice 5b)."""
+    """The JAX package's ``RCNNConfig``."""
 
     dataset_root: str = ""
     dataset_split: str = ""
@@ -123,18 +132,30 @@ def _trunc_normal(shape, std, gen):
     return torch.erfinv(2 * u - 1) * (math.sqrt(2) * std / _TRUNC_STD)
 
 
+def _plain_conv(name: str) -> bool:
+    """A flax ``nn.Conv`` outside a ``ConvBlock`` (lecun-normal init): the
+    Swin patch embed and the ResNet pyramids' ``lat_*``, ``smooth_*``, ``top``."""
+    last = name.rsplit(".", 1)[-1]
+    return last in ("patch_embed", "top") or last.startswith(("lat_", "smooth_"))
+
+
 def init_rcnn_params(model: NeRF_RCNN, seed: int) -> None:
     """Seeded random init with flax's initializers: he-normal for the
-    backbone and mask convs, xavier-uniform for the FPN convs, lecun-normal
-    for the dense layers and the mask logits; zero biases, unit norm
-    scales. The numbers differ from JAX's (another generator)."""
+    backbone's conv blocks and the mask convs, xavier-uniform for the FPN
+    convs, lecun-normal for the dense layers, the mask logits and the
+    other plain convs, truncated normal(0.02) for the Swin bias tables; zero
+    biases, unit norm scales. The numbers differ from JAX's (another
+    generator)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, GroupNorm):
+            if isinstance(mod, (GroupNorm, LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
                 continue
+            if isinstance(mod, ShiftedWindowAttention3D):
+                t = mod.rel_pos_bias_table
+                t.copy_(_trunc_normal(t.shape, 0.02 * _TRUNC_STD, gen))
             if not isinstance(mod, (Conv3d, Linear, ConvTranspose3d)):
                 continue
             w = mod.weight
@@ -145,22 +166,27 @@ def init_rcnn_params(model: NeRF_RCNN, seed: int) -> None:
             if ".fpn." in f".{name}.":
                 a = math.sqrt(6.0 / (fan_in + fan_out))
                 val = (torch.rand(w.shape, generator=gen) * 2 - 1) * a
-            elif isinstance(mod, Linear) or name.endswith("mask_fcn_logits"):
+            elif (isinstance(mod, Linear) or name.endswith("mask_fcn_logits")
+                  or _plain_conv(name)):
                 val = _trunc_normal(w.shape, math.sqrt(1.0 / fan_in), gen)
             else:
                 val = _trunc_normal(w.shape, math.sqrt(2.0 / fan_in), gen)
             w.copy_(val)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid, gt_boxes,
-                gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=no_stage):
+                gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=no_stage,
+                precomputed_feats: bool = False):
     """One RoI-head forward and loss (the JAX package's ``make_rcnn_step_fn``
     body): sample the rois (``uniforms`` (N, 2, P + K) per scene, else drawn
     from ``generator``), pack the positives first (stably) into
     ``mask_slots`` mask slots, classification + box + mask losses (the mask
     loss a mean over scenes). Returns (total, metrics with the train-time
-    classification accuracy over the sampled rois and the positives)."""
+    classification accuracy over the sampled rois and the positives). With
+    ``precomputed_feats`` ``grids`` is the FPN pyramid, a list of levels,
+    and the backbone does not run."""
     del grid_sizes  # the rois are in grid coordinates already
     with stage("loss"):
         s = select_training_samples(
@@ -172,7 +198,9 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
         mrois = torch.gather(s.rois, 1, order[..., None].expand(*order.shape, 6))
         mlab, mmidx = (torch.gather(t, 1, order) for t in (s.labels, s.matched_gt_idx))
     with stage("forward"):
-        if cfg.freeze_backbone:
+        if precomputed_feats:
+            feats = list(grids)
+        elif cfg.freeze_backbone:
             with torch.no_grad():
                 feats = model.features(grids)
         elif cfg.remat:
@@ -185,7 +213,7 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
         cls_loss, box_loss = fastrcnn_loss(logits, deltas, s.labels, s.reg_targets, s.valid)
         mloss = torch.stack([
             maskrcnn_loss(mlogits[i], mrois[i], gt_vmasks[i], mlab[i], mmidx[i], mpos[i])
-            for i in range(grids.shape[0])]).mean()
+            for i in range(gt_vmasks.shape[0])]).mean()
         total = cls_loss + box_loss + mloss
         correct = logits.argmax(dim=-1) == s.labels
         acc = (correct & s.valid).sum() / s.valid.sum().clamp_min(1)
@@ -194,7 +222,8 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
                    "num_pos": s.pos.sum(), "cls_acc": acc, "fg_cls_acc": fg_acc}
 
 
-def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage):
+def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage,
+                      precomputed_feats: bool = False):
     """``step(state, grids, grid_sizes, rois, roi_valid, gt_boxes, gt_labels,
     gt_mask, gt_vmasks, uniforms=None, generator=None) -> (state,
     metrics)``: ``rcnn_losses``, backward, the clipped AdamW."""
@@ -202,7 +231,8 @@ def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage):
     def step(state: TrainState, *batch, uniforms=None, generator=None):
         model.zero_grad(set_to_none=True)
         total, metrics = rcnn_losses(model, cfg, mask_slots, *batch, uniforms=uniforms,
-                                     generator=generator, stage=stage)
+                                     generator=generator, stage=stage,
+                                     precomputed_feats=precomputed_feats)
         return apply_step(state, total, metrics, stage)
 
     return step
@@ -226,8 +256,6 @@ class RCNNTrainer:
     def __init__(self, cfg: RCNNConfig | None = None, device="cuda"):
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
-        if cfg.bbox_type != "aabb":
-            raise NotImplementedError("OBB RCNN comes with slice 5b (ROADMAP queue A)")
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -237,8 +265,9 @@ class RCNNTrainer:
                                   input_size=max(cfg.resolution, 160),
                                   dtype=self.dtype)
         self.model = NeRF_RCNN(backbone, num_classes=cfg.num_classes,
+                               box_dim=8 if cfg.bbox_type == "obb" else 6,
                                input_shape=(cfg.resolution,) * 3,
-                               dtype=self.dtype)
+                               out_channels=backbone.out_channels, dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
         self.state: TrainState | None = None
@@ -287,41 +316,91 @@ class RCNNTrainer:
 
     # -- train ----------------------------------------------------------------
 
-    def train_step_fn(self, stage=None):
+    def train_step_fn(self, stage=None, precomputed_feats: bool = False):
         return make_rcnn_step_fn(self.model, self.cfg, self.mask_slots,
-                                 stage=stage or self._train_stage)
+                                 stage=stage or self._train_stage,
+                                 precomputed_feats=precomputed_feats)
+
+    def device_store(self, ds: SegmentationDataset) -> dict:
+        """The split on the card, uploaded once a scene at a time: grids in
+        bf16 (with ``freeze_backbone`` their FPN levels instead, computed
+        once with the current backbone), the voxel masks bit-packed
+        (``np.packbits`` of each instance's flattened mask), the rest as
+        the host batch has it."""
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.resolution,) * 3
+        grids, feats = [], []
+        fields = {f: [] for f in ("grid_sizes", "rois", "roi_mask", "gt_boxes", "gt_labels",
+                                  "gt_mask")}
+        packed = []
+        for i in range(len(ds)):
+            b = ds.batch([i], shape, max_gt=cfg.max_gt, max_rois=cfg.max_rois)
+            g = torch.as_tensor(b.grids[0], device=dev).to(torch.bfloat16)
+            if cfg.freeze_backbone:
+                with torch.no_grad():
+                    feats.append(self.model.features(g[None].float()))
+            else:
+                grids.append(g)
+            for f, v in fields.items():
+                v.append(getattr(b, f)[0])
+            packed.append(torch.as_tensor(
+                np.packbits(b.gt_voxel_masks[0].reshape(cfg.max_gt, -1), axis=-1), device=dev))
+        store = {f: torch.as_tensor(np.stack(v), device=dev) for f, v in fields.items()}
+        store["vmasks_packed"] = torch.stack(packed)
+        if feats:
+            store["feats"] = [torch.cat(lv) for lv in zip(*feats)]
+        else:
+            store["grids"] = torch.stack(grids)
+        return store
+
+    def store_batch(self, store: dict, idx):
+        """Scenes ``idx`` gathered from ``store`` on the card, the voxel masks
+        unpacked: the train step's arguments (``BATCH_FIELDS``; the FPN
+        levels in place of the grids in a store of features)."""
+        r = self.cfg.resolution
+        it = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=self.device)
+        g = ([lv[it] for lv in store["feats"]] if "feats" in store
+             else store["grids"][it].float())
+        pk = store["vmasks_packed"][it]
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=self.device)
+        vm = ((pk[..., None] >> shifts) & 1).reshape(*pk.shape[:2], r, r, r)
+        return (g, *(store[f][it] for f in BATCH_FIELDS[1:-1]), vm)
 
     def train_loop(self) -> dict:
         """Train on the train split's precomputed rois, evaluating on the val
         split every ``eval_interval`` epochs; returns the loop's summary
-        (``train/loop.py:train_epochs``)."""
+        (``train/loop.py:train_epochs``). ``device_data`` holds the split on
+        the card (``device_store``); a split smaller than a batch then draws
+        its batch with repeats, as the JAX loop does."""
         cfg = self.cfg
-        if cfg.steps_per_call > 1:
-            raise NotImplementedError("steps_per_call > 1 comes with slice 5b "
-                                      "(ROADMAP queue A)")
-        if cfg.device_data:
-            raise NotImplementedError("device_data comes with slice 5b (ROADMAP queue A)")
         split = cfg.dataset_split or None
         ds = SegmentationDataset("train", cfg.dataset_root, split, cache=cfg.cache_scenes)
         val = SegmentationDataset("val", cfg.dataset_root, split, cache=cfg.cache_scenes)
         self.init_state(total_steps=cfg.num_epochs * max(1, len(ds) // cfg.batch_size))
-        step_fn = self.train_step_fn()
+        loop_kw = {}
+        if cfg.device_data:
+            store = self.device_store(ds)
+            step_fn = self.train_step_fn(precomputed_feats="feats" in store)
+            loop_kw = dict(epoch_indices=device_indices("draw"))
 
-        def load(idx):
-            return ds.batch(idx, (cfg.resolution,) * 3, max_gt=cfg.max_gt,
-                            max_rois=cfg.max_rois)
+            def load(idx):
+                return self.store_batch(store, idx)
+        else:
+            step_fn = self.train_step_fn()
+
+            def load(idx):
+                return device_batch(ds.batch(idx, (cfg.resolution,) * 3, max_gt=cfg.max_gt,
+                                             max_rois=cfg.max_rois), self.device, BATCH_FIELDS)
 
         def step(batch):
-            self.state, metrics = step_fn(self.state, *device_batch(batch, self.device,
-                                                                    BATCH_FIELDS),
-                                          generator=self.gen)
+            self.state, metrics = step_fn(self.state, *batch, generator=self.gen)
             return metrics
 
         def save(gstep, metrics):
             self.ckpt.save(gstep, self.state.state_dict(), config=asdict(cfg), metrics=metrics)
 
         return train_epochs(cfg, len(ds), 0, load, step, evaluate=lambda: self.eval(val),
-                            save=save if self.ckpt else None, log=log)
+                            save=save if self.ckpt else None, log=log, **loop_kw)
 
     def _card_train_batch(self, batch, shape):
         """The JAX trainer's synthetic batch for ``benchmark_train_step``:

@@ -202,7 +202,8 @@ class RPNTrainer:
                                   dtype=self.dtype)
         self.model = NeRFRegionProposalNetwork(
             backbone, conv_depth=cfg.conv_depth, rotated=cfg.rotated_bbox,
-            fpn_strides=cfg.fpn_strides, dtype=self.dtype)
+            fpn_strides=cfg.fpn_strides, out_channels=backbone.out_channels,
+            dtype=self.dtype)
         self.model.eval()
         self.params_loaded = False
         self.state: TrainState | None = None

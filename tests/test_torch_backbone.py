@@ -106,7 +106,27 @@ def test_vgg_fpn_ef_matches_jax():
 
 
 def test_build_backbone_names_later_slices():
-    assert isinstance(build_backbone("vgg_AF"), VGG_FPN)
-    for name in ("resnet", "swin_t"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            build_backbone(name)
+    """The factory returns every backbone the JAX package's does, with the
+    hyperparameters of the JAX configs: VGG (with ``conv_at_start``), the
+    ResNet-FPN of ``resnet`` and the four Swin variants; none raises."""
+    from instance_nerf_tpu.models.backbones import build_backbone as j_build
+    from instance_nerf_tpu_torch.models.backbones import ResNet_FPN_256
+    from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN
+
+    for name in ("vgg_AF", "vgg_DF", "vgg_EF"):
+        m = build_backbone(name, conv_at_start=True)
+        assert isinstance(m, VGG_FPN) and m.conv_at_start
+        assert m.ds_proj.conv.weight.shape[:2] == (128, 32)
+    for size in (64, 160):
+        j, t = j_build("resnet", input_size=size), build_backbone("resnet", input_size=size)
+        assert isinstance(t, ResNet_FPN_256)
+        assert (t.layers, t.is_max_pool) == (tuple(j.layers), j.is_max_pool)
+    for name in ("swin_t", "swin_s", "swin_b", "swin_l"):
+        j, t = j_build(name), build_backbone(name)
+        assert isinstance(t, SwinTransformerFPN)
+        assert t.depths == tuple(j.depths) and t.out_channels == j.out_channels == 256
+        assert t.patch_embed.weight.shape[0] == j.embed_dim
+        assert [getattr(t, f"stage{i}_block0").attn.num_heads for i in range(4)] == list(
+            j.num_heads)
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        build_backbone("densenet")

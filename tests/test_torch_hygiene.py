@@ -55,6 +55,8 @@ def test_port_has_every_slice_module():
               # slice 5a: detector training
               "ops.sampling", "ops.projection", "parallel.train_step",
               "train.checkpoints", "train.train_utils", "train.loop",
+              # slice 5b: the Swin backbone (ResNet is in models.backbones)
+              "models.swin",
               # slice 6: the field's CLIs, fleets, mask projection and match_seg
               "cli.run_instance_field", "cli.run_fleet", "train.multiscene",
               "parallel.ngp_train_step", "eval.instance_field_metrics", "data.png",
@@ -195,43 +197,104 @@ def test_coarse_occ_lookup_on_cpu_runs_plain_without_counting():
     assert coarse_occ_cuda.coarse_occ_lookup.launches == before
 
 
-def test_rpn_cli_modes_of_later_slices_raise():
-    """``--mode train`` runs (``tests/test_torch_train_cli.py``); its options
-    of slice 5b raise, naming it: the ResNet and Swin backbones, OBB RCNN and
-    more than one step per dispatch."""
+@pytest.fixture(scope="module")
+def toy_data(tmp_path_factory):
+    """A 4-scene dataset at 32x32x24 (2 train scenes), AABB and rotated."""
+    from instance_nerf_tpu_torch.data.synthetic import write_dataset
+
+    out = {}
+    for kind, rotated in (("aabb", False), ("obb", True)):
+        root = str(tmp_path_factory.mktemp(kind))
+        write_dataset(root, num_scenes=4, grid_size=(32, 32, 24), seed=1,
+                      style="room" if rotated else "boxes", rotated=rotated)
+        out[kind] = root
+    return out
+
+
+def _toy_argv(cli, root, boxes="metadata"):
+    """The train mode at toy size: 32^3, batch 2, one epoch, no val eval,
+    no checkpoint."""
+    argv = ["--mode", "train", "--device", "cpu", "--resolution", "32", "--batch_size", "2",
+            "--num_epochs", "1", "--eval_interval", "2", "--dtype", "float32",
+            "--max_gt", "4"]
+    if cli == "run_rcnn":
+        return argv + ["--dataset_root", root, "--max_rois", "16",
+                       "--batch_size_per_image", "32"]
+    argv += ["--features_path", os.path.join(root, "features"),
+             "--boxes_path", os.path.join(root, boxes),
+             "--dataset_split", os.path.join(root, "dataset_split.json")]
+    return argv + (["--batch_size_per_mesh", "64"] if cli == "run_rpn" else [])
+
+
+def _summary(main, argv):
+    import contextlib
+    import io
+    import json
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def test_rpn_cli_modes_of_later_slices_raise(toy_data):
+    """The options that slice 5b brought now train at toy size on the CPU:
+    the ResNet and Swin backbones and more than one step per dispatch; OBB
+    RCNN builds its 8-delta head and its step raises where the JAX step
+    fails. Only the multi-card option (``--n_spatial > 1``) still raises,
+    naming slice 7."""
     from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
 
+    root = toy_data["aabb"]
     for cli, argv in ((run_rpn, ["--backbone_type", "resnet"]),
                       (run_fcos, ["--backbone_type", "swin_t"]),
-                      (run_fcos, ["--steps_per_call", "2"]),
-                      (run_rcnn, ["--bbox_type", "obb"]),
-                      (run_rcnn, ["--steps_per_call", "2"])):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            cli.main(["--mode", "train", "--device", "cpu"] + argv)
+                      (run_fcos, ["--steps_per_call", "2", "--backbone_type", "vgg_AF"]),
+                      (run_rcnn, ["--steps_per_call", "2", "--backbone_type", "vgg_AF"])):
+        name = cli.__name__.rsplit(".", 1)[-1]
+        out = _summary(cli.main, _toy_argv(name, root) + argv)
+        assert out["steps"] == 1 and np.isfinite(out["last"]["total"]), (name, argv)
+    with pytest.raises(ValueError, match="8 box deltas against 6-wide targets"):
+        run_rcnn.main(_toy_argv("run_rcnn", root) + ["--bbox_type", "obb",
+                                                     "--backbone_type", "vgg_AF"])
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        run_fcos.main(_toy_argv("run_fcos", root) + ["--n_spatial", "2"])
 
 
-def test_train_modes_of_later_slices_raise():
+def test_train_modes_of_later_slices_raise(toy_data):
     """OBB RCNN, ``steps_per_call > 1`` and the device-resident store
-    ``device_data`` come with slice 5b, and the trainers say so."""
+    ``device_data`` run in the trainers at toy size; the OBB sampler encodes
+    8 deltas; a mesh over several cards (``n_spatial > 1``) raises, naming
+    slice 7."""
     import torch as _torch
 
     from instance_nerf_tpu_torch.models.rcnn import select_training_samples
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
 
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        RCNNTrainer(RCNNConfig(bbox_type="obb"), device="cpu")
-    for cfg in (FCOSConfig(steps_per_call=4), FCOSConfig(device_data=True)):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            FCOSTrainer(cfg, device="cpu").train_loop()
-    for cfg in (RCNNConfig(steps_per_call=4), RCNNConfig(device_data=True)):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            RCNNTrainer(cfg, device="cpu").train_loop()
+    obb = RCNNTrainer(RCNNConfig(bbox_type="obb", backbone_type="vgg_AF"), device="cpu")
+    assert obb.model.box_head.bbox_pred.weight.shape[0] == 11 * 8
+    root = toy_data["aabb"]
+    common = dict(resolution=32, batch_size=1, num_epochs=1, eval_interval=2, max_gt=4,
+                  dtype="float32", backbone_type="vgg_AF")
+    paths = dict(features_path=os.path.join(root, "features"),
+                 boxes_path=os.path.join(root, "metadata"),
+                 dataset_split=os.path.join(root, "dataset_split.json"), rot_scale_prob=0.0)
+    for cfg in (FCOSConfig(steps_per_call=4, **paths, **common),
+                FCOSConfig(device_data=True, **paths, **common)):
+        out = FCOSTrainer(cfg, device="cpu").train_loop()
+        assert out["steps"] == 2 and out["calls"] == (1 if cfg.steps_per_call > 1 else 2)
+    for cfg in (RCNNConfig(steps_per_call=4, dataset_root=root, max_rois=16, **common),
+                RCNNConfig(device_data=True, dataset_root=root, max_rois=16, **common)):
+        out = RCNNTrainer(cfg, device="cpu").train_loop()
+        assert out["steps"] == 2 and np.isfinite(out["last"]["total"])
     box = _torch.tensor([[[0.0, 0, 0, 4, 4, 4]]])
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        select_training_samples(box, _torch.ones((1, 1), dtype=_torch.bool), box,
+    gt = _torch.tensor([[[2.0, 2, 2, 4, 4, 4, 0.3]]])
+    s = select_training_samples(box, _torch.ones((1, 1), dtype=_torch.bool), gt,
                                 _torch.ones((1, 1), dtype=_torch.int64),
                                 _torch.ones((1, 1), dtype=_torch.bool), box_dim=8)
+    assert s.reg_targets.shape == (1, 2, 8) and bool(s.pos.all())
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        FCOSTrainer(FCOSConfig(n_spatial=2), device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

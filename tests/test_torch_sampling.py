@@ -169,7 +169,19 @@ def test_select_training_samples_matches_jax(budget, frac):
 
 
 def test_select_training_samples_obb_raises():
+    """``box_dim = 8`` no longer raises: the OBB gt are matched by their AABB
+    and the targets are 8 midpoint-offset deltas, as in the JAX package
+    (held there in ``tests/test_torch_rcnn_obb.py``)."""
     props, pvalid, gt, labels, gmask = _rcnn_case(0)
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        TR.select_training_samples(*(torch.from_numpy(a) for a in
-                                     (props, pvalid, gt, labels, gmask)), box_dim=8)
+    obb = np.concatenate([(gt[..., :3] + gt[..., 3:]) / 2, gt[..., 3:] - gt[..., :3],
+                          np.zeros(gt.shape[:-1] + (1,), np.float32)], -1)
+    key = jax.random.key(0)
+    want = JR.select_training_samples(
+        key, *(jnp.asarray(a) for a in (props, pvalid, obb, labels, gmask)), box_dim=8)
+    got = TR.select_training_samples(
+        *(torch.from_numpy(a) for a in (props, pvalid, obb, labels, gmask)), box_dim=8,
+        uniforms=torch.from_numpy(scene_uniforms(key, 2, props.shape[1] + gt.shape[1])))
+    assert got.reg_targets.shape == (2, props.shape[1] + gt.shape[1], 8)
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_allclose(got.reg_targets.numpy(), np.asarray(want.reg_targets),
+                               rtol=1e-6, atol=1e-6)

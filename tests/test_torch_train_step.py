@@ -150,6 +150,74 @@ def test_fcos_train_step_matches_jax(rotated, tmp_path):
     _compare_grads(tt.model, jstate.opt_state, fcos_params_from_jax)
 
 
+def _toy_backbones(name):
+    """(JAX, port) toy backbones of ``name``: Swin with embed 24 and depths
+    (2, 2, 2, 2) (shifted windows at 32^3), ResNet-FPN with one bottleneck
+    a stage from 8 planes and the max-pooled stem."""
+    from instance_nerf_tpu.models.backbones import ResNet_FPN_256 as JRes
+    from instance_nerf_tpu.models.swin import SwinTransformerFPN as JSwin
+    from instance_nerf_tpu_torch.models.backbones import ResNet_FPN_256 as TRes
+    from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN as TSwin
+
+    if name == "swin":
+        kw = dict(embed_dim=24, depths=(2, 2, 2, 2), num_heads=(1, 2, 2, 4))
+        return JSwin(**kw), TSwin(**kw)
+    kw = dict(layers=(1, 1, 1, 1), in_planes=8, is_max_pool=True)
+    return JRes(**kw), TRes(**kw)
+
+
+@pytest.mark.parametrize("name", ["swin", "resnet"])
+def test_fcos_train_step_with_new_backbones_matches_jax(name):
+    """One FCOS (AABB) step with a toy Swin and a toy ResNet backbone: the
+    losses to 1e-5 and the gradients to 1e-4 of their largest entry. The
+    Swin step runs in f32, its own trunk included (no ReLU in it). The
+    ResNet features differ by 1e-5 of their largest entry in f32 (its trunk's
+    ReLUs flip at rounding, ``tests/test_torch_resnet.py``), which flips the
+    head's ReLUs in turn (4e-3 on a tower's gradient), so that step runs in
+    f64 in both packages (JAX's x64 mode; the FCOS step draws nothing, so
+    x64 changes no sample), the trunk included."""
+    from instance_nerf_tpu.models.fcos import FCOSOverNeRF as JFCOS
+    from instance_nerf_tpu_torch.models.fcos import FCOSOverNeRF as TFCOS
+
+    f64 = name == "resnet"
+    jb, tb = _toy_backbones(name)
+    jm = JFCOS(backbone=jb, num_convs=2)
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), jnp.zeros((1, *SHAPE, 4)))
+    params = fcos_params(shapes, 27, cls_scale=3.0)
+    gt, mask = _gt(8, 6)
+    args = (_grids(9), SIZES, gt, mask)
+    with jax.enable_x64(f64):
+        dt = jnp.float64 if f64 else jnp.float32
+        p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dt), params)
+        state = JS.TrainState(p, capture().init(p), jnp.zeros((), jnp.int32))
+        jstate, jmet = JS.make_fcos_train_step(jm, capture())(
+            state, *(jnp.asarray(a, dt) if a.dtype == np.float32 else jnp.asarray(a)
+                     for a in args))
+        jgrads = jax.tree_util.tree_map(np.asarray, jstate.opt_state)
+
+    tm = TFCOS(tb, num_convs=2)
+    tm.load_state_dict(fcos_params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    targs = [torch.from_numpy(a) for a in args]
+    if f64:
+        tm = tm.double()
+        targs = [a.double() if a.is_floating_point() else a for a in targs]
+    tstate = TS.TrainState(tm, TS.make_optimizer(tm.named_parameters(), lr=0.0))
+    _, tmet = TS.make_fcos_train_step(tm)(tstate, *targs)
+    assert float(tmet["num_pos"]) == float(jmet["num_pos"]) > 0
+    _compare(tmet, jmet, ("loss_cls", "loss_reg", "loss_centerness", "total"))
+    _compare_grads(tm, jgrads, fcos_params_from_jax)
+    # the trunk too: patch embed, attention, merging and MLPs; stem and
+    # bottlenecks
+    want = fcos_params_from_jax(jgrads)
+    trunk = [(n, p) for n, p in tm.named_parameters() if in_trunk(n)]
+    assert any(("rel_pos_bias_table" if name == "swin" else "downsample") in n for n, _ in trunk)
+    top = max(float(w.abs().max()) for w in want.values())
+    for n, p in trunk:
+        w = want[n].double()
+        scale = max(float(w.abs().max()), 1e-9 * top)  # biases ahead of a GroupNorm: 0
+        assert float((p.grad.double() - w).abs().max()) <= 1e-4 * scale, n
+
+
 @pytest.mark.parametrize("rotated", [False, True], ids=["aabb", "obb"])
 def test_rpn_train_step_matches_jax(rotated, tmp_path):
     box_dim = 7 if rotated else 6
