@@ -144,16 +144,37 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    rounded to bf16 by design, to one bf16 ulp), params 1e-5.
 13d. ``project_masks``: a 96^3 voxel instance grid and alpha grid projected
    into 8 views at 128^2 on the card and on the CPU: the files equal.
+13e. ``slice_dist`` (main path of slice 7a): training over every visible
+   card, one rank a card under ``torch.distributed.run`` (NCCL); the script
+   starts itself there (``--dist-child slice_dist``). FCOS AABB at the JAX
+   trainer's defaults (global batch 4, 160^3, bf16, VGG-EF): after 3 steps
+   in deterministic mode the launched params must equal this process's
+   one-process trainer's bit for bit with one rank; 18 timed steps (ms,
+   global scenes/s, peak bytes), the ``allreduce`` span and the gradient
+   bytes it moves. The B = 32 fleet of ``slice_fleet`` at run_fleet's
+   defaults with ``--pallas_grad``, split over the ranks: B3 once per rank
+   per step, aggregate rays/s, saved on the ranks and restored
+   bit-identical here in one process and on the ranks. ``run_fcos --mode train`` (2 epochs, B1 in rank
+   0's evals, one checkpoint and ``best/``), its ``--resume`` to a third
+   epoch, ``run_rpn --rotated_bbox --mode train`` (B2 in rank 0's evals).
+13f. ``small_reference_dist``: 2 ranks on the card over gloo against this
+   process's one-process card run on the same global inputs: one step of
+   FCOS AABB, the rotated RPN and the RCNN (f64 gradients 1e-5 of their
+   max, f32 losses 1e-5; f32 gradients reported), the ray-sharded field
+   step (B3 once a rank) and a B = 4 fleet step (f32, 1e-5).
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
    launches on its path, error, times (``ms``, ``device_ms``) and bound;
    B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
    ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...)
    and their launches in the train loops' evals (``launches_train_loop``)
-   and on the Swin and ResNet paths (``launches_backbones``);
+   and on the Swin and ResNet paths (``launches_backbones``), and in rank
+   0's evals under the launcher (``launches_dist_train_loop``);
    B3's its launches on the field CLI's and the fleet's paths
    (``launches_field_cli``, ``launches_field_cli_fast``,
-   ``launches_fleet``) and the cases of the fleet step and the tpu_fast
-   CLI step (``fleet``, ``field_cli_fast``).
+   ``launches_fleet``), in the fleet split over the ranks
+   (``launches_fleet_dist``) and in the ray-sharded field step
+   (``launches_field_sharded``, one a rank), and the cases of the fleet
+   step and the tpu_fast CLI step (``fleet``, ``field_cli_fast``).
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -2303,16 +2324,16 @@ TRAIN_CELLS = {
 }
 
 
-def make_trainer(kind, rotated, device, **cfg):
+def make_trainer(kind, rotated, device, mesh=None, **cfg):
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
     from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
     from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
 
     if kind == "fcos":
-        return FCOSTrainer(FCOSConfig(rotated_bbox=rotated, **cfg), device=device)
+        return FCOSTrainer(FCOSConfig(rotated_bbox=rotated, **cfg), device=device, mesh=mesh)
     if kind == "rpn":
-        return RPNTrainer(RPNConfig(rotated_bbox=rotated, **cfg), device=device)
-    return RCNNTrainer(RCNNConfig(**cfg), device=device)
+        return RPNTrainer(RPNConfig(rotated_bbox=rotated, **cfg), device=device, mesh=mesh)
+    return RCNNTrainer(RCNNConfig(**cfg), device=device, mesh=mesh)
 
 
 def phase_slice_train(smi):
@@ -2597,6 +2618,501 @@ def phase_train_loop():
     return launches
 
 
+# -- slice 7a: training over several cards ---------------------------------------
+
+DIST_STEPS = 3  # FCOS steps before the launched params are held to one process's
+DIST_FLEET_STEPS = {"train": 16, "bench": 32}
+DIST_TIMEOUT_S = 300
+# small_reference_dist: a 48x40x36 grid, batch 2, the reference backbone
+DIST_REF_SHAPE = (48, 40, 36)
+DIST_FIELD = dict(n_levels=4, table_size=2 ** 12, max_res=64, hidden=16, num_instances=5,
+                  n_rays=256, n_samples=32, k_occupied=8, occ_res=16, pallas_grad=True)
+
+
+def launch(nproc, child_args, env=None, timeout=DIST_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --dist-child ...`` (its own process group, killed
+    whole past ``timeout``); raises with the launcher's output if a rank
+    fails."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--dist-child",
+           *map(str, child_args)]
+    with tempfile.TemporaryFile() as log:
+        p = subprocess.Popen(cmd, env={**os.environ, **(env or {})}, stdout=log,
+                             stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        log.seek(0)
+        text = log.read().decode(errors="replace")
+    if p.returncode != 0:
+        raise AssertionError(f"launch {child_args[0]} exited {p.returncode}: {text[-4000:]}")
+    return text
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms (and torch's, warning where one has
+    none) inside the block: two runs of the same train steps on the card
+    agree bit for bit only so (the default wgrad algorithms sum in another
+    order from run to run)."""
+
+    def __enter__(self):
+        import torch
+
+        self.was = (torch.backends.cudnn.deterministic,
+                    torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic = self.was[0]
+        torch.use_deterministic_algorithms(self.was[1])
+
+
+def _fcos_params_after_steps():
+    """The FCOS trainer at the JAX defaults (global batch 4, 160^3, bf16,
+    VGG-EF), ``DIST_STEPS`` steps on its synthetic batch in deterministic
+    mode (one rank of a launched mesh, or one process): the trainer and its
+    params on the host."""
+    import torch
+
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+
+    tr = FCOSTrainer(FCOSConfig(), device="cuda")
+    tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+    run = tr._card_train_step(4, FCOS_GRID)
+    with deterministic():
+        for _ in range(DIST_STEPS):
+            run()
+        torch.cuda.synchronize()
+    return tr, {k: v.cpu() for k, v in tr.model.state_dict().items()}
+
+
+def _rank():
+    return int(os.environ.get("RANK", 0))
+
+
+def _write(out, name, obj):
+    with open(os.path.join(out, f"{name}.{_rank()}.json"), "w") as f:
+        json.dump(obj, f)
+
+
+def _read(out, name, rank=0):
+    with open(os.path.join(out, f"{name}.{rank}.json")) as f:
+        return json.load(f)
+
+
+def child_slice_dist(out, fleet_pattern):
+    """One rank of ``slice_dist`` under the launcher: the FCOS step, the
+    fleet, the detector CLIs."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from instance_nerf_tpu_torch.parallel.mesh import buckets
+    from instance_nerf_tpu_torch.parallel.train_step import gradient_bytes
+
+    # the FCOS step at the JAX trainer's defaults: 3 steps, then the timing
+    tr, params = _fcos_params_after_steps()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    if _rank() == 0:
+        torch.save(params, os.path.join(out, "fcos_params.pt"))
+    del params
+    bench = tr.benchmark_train_step(reps=18, warmup=3)
+    prof = tr.profile_train(reps=5, warmup=2)
+    _write(out, "fcos_step", {
+        "backend": backend, "world": world, "mesh": repr(tr.mesh), "device": str(tr.device),
+        "step_ms": bench["median_ms"], "step_ms_mean": bench["mean_ms"],
+        "scenes_per_s": bench["scenes_per_s"], "peak_mem_bytes": bench["peak_mem_bytes"],
+        "losses_last": bench["losses"][-1], "allreduce_ms": prof["stages_ms_median"].get(
+            "allreduce"), "stages_ms": prof["stages_ms_median"],
+        "busy_share": prof["device_busy_share"], "gradient_bytes": gradient_bytes(tr.state),
+        # NCCL calls a step: the gradients' buckets, the metrics after them
+        "allreduce_calls": len(buckets([p.numel() for p in tr.state.tx.params]
+                                       + [1] * len(bench["losses"][-1]))),
+        "losses_finite": all(np.isfinite(v) for m in bench["losses"] for v in m.values())})
+    del tr
+    torch.cuda.empty_cache()
+
+    # the fleet at run_fleet's defaults split over the ranks
+    from instance_nerf_tpu_torch.cli import run_fleet
+
+    args = run_fleet.build_parser().parse_args(
+        ["--scenes", fleet_pattern, "--pallas_grad", "--log_every", "0"] + FLEET_FLAGS)
+    _, scenes = run_fleet.load_scenes(args)
+    fl = run_fleet.make_trainer(args, scenes)
+    zero_launches()
+    t0 = time.perf_counter()
+    fl.train(DIST_FLEET_STEPS["train"], log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    fl.save(os.path.join(out, "fleet_ckpt"), step=DIST_FLEET_STEPS["train"])
+    state, count = _fleet_state(fl)
+    torch.save({"state": {k: v.cpu() for k, v in state.items()}, "count": count,
+                "scenes": [fl._sl.start, fl._sl.stop]},
+               os.path.join(out, f"fleet_block.{_rank()}.pt"))
+    bench = fl.benchmark(steps=DIST_FLEET_STEPS["bench"])
+    # the benchmark trained on: restored on the ranks, each block is the saved one
+    fl.restore(os.path.join(out, "fleet_ckpt"))
+    restored = _same_state(_fleet_state(fl), (state, count))
+    _write(out, "fleet", {"launches": launches, "train_s": train_s, "mesh": repr(fl.mesh),
+                          "scenes": [fl._sl.start, fl._sl.stop], "benchmark": bench,
+                          "restored_on_ranks_bit_identical": restored})
+    del fl, scenes, state
+    torch.cuda.empty_cache()
+
+    # the detector CLIs' train mode: FCOS AABB (B1 in rank 0's evals), its
+    # resume, the rotated RPN (B2)
+    from instance_nerf_tpu_torch.cli import run_fcos, run_rpn
+    from instance_nerf_tpu_torch.data.synthetic import write_dataset
+
+    roots = {}
+    for kind, rotated in (("aabb", False), ("obb", True)):
+        roots[kind] = os.path.join(out, f"data_{kind}")
+        if _rank() == 0:
+            write_dataset(roots[kind], num_scenes=4, grid_size=(64, 64, 48), seed=0,
+                          style="room" if rotated else "boxes", rotated=rotated)
+    dist.barrier()
+    common = ["--mode", "train", "--eval_interval", "1", "--batch_size", "2",
+              "--keep_checkpoints", "1", "--resolution", "64"]
+
+    def proposal(kind):
+        root = roots[kind]
+        return ["--features_path", os.path.join(root, "features"),
+                "--boxes_path", os.path.join(root, "boxes_obb" if kind == "obb" else "metadata"),
+                "--dataset_split", os.path.join(root, "dataset_split.json")]
+
+    clis = {}
+    for name, main_fn, argv in (
+            ("fcos_aabb", run_fcos.main, common + ["--num_epochs", "2"] + proposal("aabb")),
+            ("fcos_aabb_resume", run_fcos.main,
+             common + ["--num_epochs", "3", "--resume"] + proposal("aabb")),
+            ("rpn_rotated", run_rpn.main,
+             common + ["--num_epochs", "2", "--rotated_bbox"] + proposal("obb"))):
+        save = os.path.join(out, "fcos_aabb" if name.startswith("fcos") else name)
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main_fn(argv + ["--save_path", save])
+        # rank 0 prints the run's summary last; every rank logs to stdout
+        clis[name] = {"launches": read_launches(), "seconds": time.perf_counter() - t0,
+                      "summary": (json.loads(buf.getvalue().strip().splitlines()[-1])
+                                  if _rank() == 0 else None),
+                      "checkpoints": sorted(os.listdir(save))}
+        dist.barrier()
+    _write(out, "clis", clis)
+
+
+def phase_slice_dist(work, smi):
+    """Main path of slice 7a: training over every visible card
+    (``torch.cuda.device_count()`` ranks of ``torch.distributed.run``, NCCL).
+    FCOS AABB at the JAX trainer's defaults (global batch 4, 160^3, bf16,
+    VGG-EF): after 3 steps in deterministic mode (``deterministic``) the
+    launched params must equal this process's one-process trainer's bit for
+    bit with one rank; 18 timed steps (ms,
+    global scenes/s, peak bytes), the ``allreduce`` span and the gradient
+    bytes it moves. The B = 32 fleet at run_fleet's defaults with
+    ``--pallas_grad`` split over the ranks: B3 once per rank per step,
+    aggregate rays/s, saved on the ranks and restored bit-identical here in
+    one process and on the ranks (after the benchmark trained on). ``run_fcos --mode train`` (2 epochs, B1 in rank 0's evals,
+    one checkpoint and ``best/``), ``--resume`` to a third epoch, and
+    ``run_rpn --rotated_bbox --mode train`` (B2 in rank 0's evals)."""
+    import torch
+
+    from instance_nerf_tpu_torch.cli import run_fleet
+
+    n = torch.cuda.device_count()
+    out = os.path.join(work, "dist")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch(n, ["slice_dist", out, f"{work}/fleet/scene_*"])
+    report = {"phase": "slice_dist", "ranks": n, "launch_s": time.perf_counter() - t0,
+              "nvidia_smi": smi}
+    failed = []
+    step = _read(out, "fcos_step")
+    report["fcos_step"] = step
+    if step["backend"] != "nccl" or step["world"] != n:
+        failed.append(f"fcos: backend {step['backend']} over {step['world']} ranks")
+    if not step["losses_finite"] or step["allreduce_ms"] is None:
+        failed.append("fcos: a loss is not finite, or no allreduce span")
+    # the one-process trainer, the same seeded weights, batch and settings
+    tr, params = _fcos_params_after_steps()
+    launched = torch.load(os.path.join(out, "fcos_params.pt"), weights_only=True)
+    report["fcos_params_max_abs_diff"] = max(
+        float((v.float() - launched[k].float()).abs().max()) for k, v in params.items())
+    report["fcos_params_bitwise"] = all(torch.equal(v, launched[k]) for k, v in params.items())
+    if n == 1 and not report["fcos_params_bitwise"]:
+        failed.append(f"fcos: one rank's params differ from one process's by "
+                      f"{report['fcos_params_max_abs_diff']}")
+    del tr, params, launched
+    torch.cuda.empty_cache()
+
+    fleet = [_read(out, "fleet", r) for r in range(n)]
+    report["fleet"] = fleet[0]
+    report["fleet_aggregate_rays_per_s"] = fleet[0]["benchmark"]["aggregate_rays_per_s"]
+    for r, f in enumerate(fleet):
+        if not f["restored_on_ranks_bit_identical"]:
+            failed.append(f"fleet rank {r}: its block restored on the ranks differs from "
+                          f"the saved one")
+        if f["launches"]["scatter_add"] != DIST_FLEET_STEPS["train"]:
+            failed.append(f"fleet rank {r}: B3 launched {f['launches']['scatter_add']} times "
+                          f"in {DIST_FLEET_STEPS['train']} steps")
+    args = run_fleet.build_parser().parse_args(
+        ["--scenes", f"{work}/fleet/scene_*", "--pallas_grad", "--log_every", "0"] + FLEET_FLAGS)
+    _, scenes = run_fleet.load_scenes(args)
+    one = run_fleet.make_trainer(args, scenes)
+    meta = one.restore(os.path.join(out, "fleet_ckpt"))
+    state, count = _fleet_state(one)
+    same = count == DIST_FLEET_STEPS["train"] == meta["step"]
+    for r in range(n):
+        blk = torch.load(os.path.join(out, f"fleet_block.{r}.pt"), weights_only=True)
+        s0, s1 = blk["scenes"]
+        same &= blk["count"] == count and all(torch.equal(v[s0:s1].cpu(), blk["state"][k])
+                                               for k, v in state.items())
+    report["fleet_restored_bit_identical"] = bool(same)
+    if not same:
+        failed.append("fleet: the state restored in one process differs from the ranks'")
+    del one, state, scenes
+    torch.cuda.empty_cache()
+
+    clis = _read(out, "clis")
+    report["clis"] = clis
+    launches = {"fcos_aabb": clis["fcos_aabb"]["launches"]["nms_boxes"],
+                "fcos_aabb_resume": clis["fcos_aabb_resume"]["launches"]["nms_boxes"],
+                "rpn_rotated": clis["rpn_rotated"]["launches"]["nms_sweep"]}
+    for name, c in launches.items():
+        if c == 0:
+            failed.append(f"{name}: its kernel was not launched in rank 0's evals")
+    first, resumed = clis["fcos_aabb"]["summary"], clis["fcos_aabb_resume"]["summary"]
+    if resumed["start_epoch"] != 2 or resumed["gstep"] != first["gstep"] * 3 // 2:
+        failed.append(f"resume started at epoch {resumed['start_epoch']}, step "
+                      f"{resumed['gstep']}")
+    for name in ("fcos_aabb", "rpn_rotated"):
+        kept = clis[name]["checkpoints"]
+        if len([k for k in kept if k.startswith("step_")]) != 1 or "best" not in kept:
+            failed.append(f"{name}: checkpoints {kept}")
+    report["launches_dist_train_loop"] = launches
+    report["phase_s"] = time.perf_counter() - t0
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return report
+
+
+def _capture_grads(tx):
+    """The gradients (by name) each optimizer step is given."""
+    seen = []
+    step = tx.step
+
+    def wrapped(grads=None):
+        g = grads if grads is not None else [
+            p.grad if p.grad is not None else p.new_zeros(p.shape) for p in tx.params]
+        seen.append({n: x.detach().cpu().clone() for n, x in zip(tx.names, g)})
+        return step(grads)
+
+    tx.step = wrapped
+    return seen
+
+
+def _ref_runs(mesh=None):
+    """small_reference_dist's runs of one process (``mesh`` None) or of one
+    rank: {name: (metrics, gradients)} of one step of FCOS AABB, the rotated
+    RPN and the RCNN (f32 and f64) on a synthetic global batch of 2, the
+    ray-sharded field step (f32), a B = 4 fleet step (f32); and the B3
+    launches of the field step."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.models.render import OccupancyGrid
+    from instance_nerf_tpu_torch.parallel.mesh import local_rows
+    from instance_nerf_tpu_torch.parallel.ngp_train_step import sharded_ngp_loss_and_grads
+    from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
+    from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig, build_model, \
+        fast_ngp_config, init_ngp_params
+
+    out = {}
+    for name, kind, rotated in (("fcos_aabb", "fcos", False), ("rpn_rotated", "rpn", True),
+                                ("rcnn", "rcnn", False)):
+        for dtype in ("float32", "float64"):
+            cfg = dict(dtype="float32", max_gt=6, seed=5, resolution=48,
+                       backbone_type=REF_TRAIN_BACKBONE)
+            if kind == "rpn":
+                cfg["batch_size_per_mesh"] = 64
+            if kind == "rcnn":
+                cfg.update(batch_size_per_image=64, max_rois=16)
+            tr = make_trainer(kind, rotated, "cuda", mesh=mesh, batch_size=2, **cfg)
+            tr.init_state()
+            tr.model.to(getattr(torch, dtype))
+            if dtype == "float64":  # the synthetic batch's floats too
+                loader = tr._card_train_batch
+                tr._card_train_batch = lambda *a, f=loader: tuple(
+                    x.double() if x.is_floating_point() else x for x in f(*a))
+            seen = _capture_grads(tr.state.tx)
+            metrics = tr._card_train_step(2, DIST_REF_SHAPE)()
+            out[f"{name}/{dtype}"] = ({k: float(v) for k, v in metrics.items()}, seen[0])
+            del tr
+            torch.cuda.empty_cache()
+    # the ray-sharded field step, unstratified
+    cfg = NGPConfig(**DIST_FIELD)
+    model = build_model(cfg)
+    init_ngp_params(model, 3)
+    model.to("cuda")
+    rng = np.random.default_rng(4)
+    r = cfg.n_rays
+    o = np.concatenate([rng.uniform(0.1, 0.9, (r, 2)), np.full((r, 1), -0.3)], -1)
+    d = np.concatenate([rng.normal(0, 0.2, (r, 2)), np.ones((r, 1))], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = [o.astype(np.float32), d.astype(np.float32),
+            rng.uniform(0, 1, (r, 3)).astype(np.float32),
+            rng.integers(-1, cfg.num_instances, r).astype(np.int32)]
+    if mesh is not None:
+        rays = local_rows(mesh, rays)
+    occ = OccupancyGrid(torch.as_tensor(np.where(rng.uniform(size=(16,) * 3) < 0.4, 1e3, 0.0),
+                                        dtype=torch.float32, device="cuda"), cfg.occ_threshold)
+    zero_launches()
+    m, g = sharded_ngp_loss_and_grads(model, cfg, "instance", occ,
+                                      *(torch.as_tensor(a, device="cuda") for a in rays),
+                                      group=None if mesh is None else mesh.data_group,
+                                      stratified=False)
+    torch.cuda.synchronize()
+    field_launches = read_launches()["scatter_add"]
+    out["field"] = ({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in g.items() if v is not None})
+    # a B = 4 fleet: one step's per-scene losses and this rank's gradients
+    srng = np.random.default_rng(0)
+    scenes = [make_synthetic_nerf_scene(srng, n_views=3, hw=(24, 24), n_blobs=2)[0]
+              for _ in range(4)]
+    fl = MultiSceneFieldTrainer(scenes, fast_ngp_config(**FLEET_REF), seed=1, device="cuda")
+    fl.occ_grids = torch.as_tensor(
+        np.where(np.random.default_rng(1).uniform(size=(4, 16, 16, 16)) < 0.2, 1e3,
+                 0.0)[fl._sl], dtype=torch.float32, device="cuda")
+    losses, grads = fl.loss_and_grads("rgb", *fl._batch())
+    out["fleet"] = ({k: v.cpu() for k, v in losses.items()},
+                    {k: v.cpu() for k, v in grads.items() if v is not None},
+                    [fl._sl.start, fl._sl.stop])
+    return out, field_launches
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _compare_ref(one: dict, mine: dict) -> tuple:
+    """small_reference_dist's comparisons of one rank's runs against the
+    one-process runs (the detectors' and the field's where ``one`` holds
+    them, the fleet's on this rank's scenes): (report, failures)."""
+    report, failed = {}, []
+    for name in [k for k in one if "/" in k]:
+        (m1, g1), (m2, g2) = one[name], mine[name]
+        loss_err = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-6) for k in m1)
+        errs = {k: _rel(g2[k], g1[k]) for k in g1}
+        report[name] = {"max_rel_err_losses": loss_err, "max_grad_err": max(errs.values()),
+                        "worst": max(errs, key=errs.get)}
+        if loss_err > 1e-5 or (name.endswith("float64") and max(errs.values()) > 1e-5):
+            failed.append(f"{name}: {report[name]}")
+    if "field" in one:
+        (m1, g1), (m2, g2) = one["field"], mine["field"]
+        loss_err = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-6) for k in m1)
+        grad_err = max(_rel(g2[k], g1[k]) for k in g1)
+        report["field"] = {"max_rel_err_losses": loss_err, "max_grad_err": grad_err}
+        if loss_err > 1e-5 or grad_err > 1e-5:
+            failed.append(f"field: {report['field']}")
+    (l1, g1, _), (l2, g2, (s0, s1)) = one["fleet"], mine["fleet"]
+    l_err = max(float(((l2[k] - l1[k][s0:s1]).abs() / l1[k][s0:s1].abs().clamp_min(1e-12)).max())
+                for k in l1)
+    f_err, dense_ulps = 0.0, 0.0
+    for k in g1:
+        if k == "dense_grid":  # rounded to bf16 once, after accumulation
+            dense_ulps = float(((g2[k] - g1[k][s0:s1]).abs() / (
+                2.0 ** -7 * g1[k][s0:s1].abs()).clamp_min(1e-30)).max())
+        else:
+            f_err = max(f_err, _rel(g2[k], g1[k][s0:s1]))
+    report["fleet"] = {"scenes": [s0, s1], "max_rel_err_losses": l_err, "max_grad_err": f_err,
+                       "dense_grid_err_in_bf16_ulps_at_most": dense_ulps}
+    if l_err > 1e-5 or f_err > 1e-5 or dense_ulps > 1.0:
+        failed.append(f"fleet: {report['fleet']}")
+    return report, failed
+
+
+def child_small_reference_dist(out):
+    import torch
+
+    from instance_nerf_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=2, backend="gloo", device="cuda")
+    runs, launches = _ref_runs(mesh)
+    one = torch.load(os.path.join(out, "one_field.pt"), weights_only=False)
+    if _rank() == 0:  # the detectors' and the field's gradients are the same on every rank
+        one.update(torch.load(os.path.join(out, "one_detectors.pt"), weights_only=False))
+    else:
+        one = {"fleet": one["fleet"]}
+    report, failed = _compare_ref(one, runs)
+    _write(out, "ref", {"report": report, "failed": failed, "field_b3_launches": launches,
+                        "backend": torch.distributed.get_backend()})
+
+
+def phase_small_reference_dist(work):
+    """2 ranks on the one card over gloo (named here: NCCL takes one rank a
+    card) against this process's one-process card run on the same global
+    inputs: one step of FCOS AABB, the rotated RPN and the RCNN at
+    48x40x36, batch 2 (one scene a rank), VGG-AF; the ray-sharded field step
+    (instance stage, unstratified, ``pallas_grad``: B3 once a rank); a B = 4
+    fleet step (two scenes a rank). Every gradient to 1e-5 of its largest
+    entry: the detectors' in f64 (in f32 a rank's conv of one scene rounds
+    otherwise than a conv of two, and ReLU inputs within rounding of 0 flip
+    under the VGG trunk, as ``small_reference_train`` says; their f32
+    losses are held to 1e-5 and their f32 gradients reported), the field's
+    and the fleet's in f32 (the fleet's dense grid, rounded to bf16 by
+    design, to one bf16 ulp). The one-process runs go first, to files the
+    ranks compare against."""
+    import torch
+
+    out = os.path.join(work, "dist_ref")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    one, _ = _ref_runs(None)
+    torch.save({k: one[k] for k in ("field", "fleet")}, os.path.join(out, "one_field.pt"))
+    torch.save({k: v for k, v in one.items() if "/" in k},
+               os.path.join(out, "one_detectors.pt"))
+    del one
+    torch.cuda.empty_cache()
+    launch(2, ["small_reference_dist", out])
+    ranks = [_read(out, "ref", r) for r in (0, 1)]
+    report = {"phase": "small_reference_dist", "ranks": 2, "backend": ranks[0]["backend"],
+              "field_b3_launches_per_rank": [r["field_b3_launches"] for r in ranks],
+              **ranks[0]["report"], "fleet_rank1": ranks[1]["report"]["fleet"],
+              "phase_s": time.perf_counter() - t0}
+    failed = ranks[0]["failed"] + ranks[1]["failed"]
+    if report["field_b3_launches_per_rank"] != [1, 1]:
+        failed.append(f"field: B3 launched {report['field_b3_launches_per_rank']} a rank")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return report
+
+
+def dist_child(argv):
+    """A rank of a launched phase: ``--dist-child NAME OUT [ARGS]``."""
+    name, *rest = argv
+    {"slice_dist": child_slice_dist, "small_reference_dist": child_small_reference_dist}[name](
+        *rest)
+
+
 def fcos_entry(nms) -> dict:
     """The FCOS path's figures of one NMS kernel for its ``kernels`` entry:
     launches per ``predict_scene``, K into the NMS, the valid boxes, the
@@ -2674,6 +3190,8 @@ def main():
         fleet, fleet_case = phase_slice_fleet(work, smi)
         phase_small_reference_fleet()
         phase_project_masks(work)
+        dist = phase_slice_dist(work, smi)
+        dist_ref = phase_small_reference_dist(work)
 
     main_scat = scat["main_all_levels"]
     emit({"kernels": [{
@@ -2691,6 +3209,8 @@ def main():
             "fcos_aabb", "rcnn", "fcos_aabb_device_data", "rcnn_device_data")},
         "launches_backbones": {k: backbones[k]["nms_boxes"] for k in (
             "fcos_aabb_swin_s", "rcnn_resnet")},
+        "launches_dist_train_loop": {k: dist["launches_dist_train_loop"][k] for k in (
+            "fcos_aabb", "fcos_aabb_resume")},
         **fcos_entry(fcos["aabb"]["nms"]),
     }, {
         "name": "nms_sweep", "route": "cuda",
@@ -2706,6 +3226,8 @@ def main():
         "launches_backbones": {k: backbones[k]["nms_sweep"] for k in (
             "fcos_rotated_swin_s", "rpn_rotated_resnet")},
         "launches_obb_rcnn_reference": launches_obb_rcnn["nms_sweep"],
+        "launches_dist_train_loop": {
+            "rpn_rotated": dist["launches_dist_train_loop"]["rpn_rotated"]},
         "random_k4000": timing_iou["k4000"],
         **fcos_entry(fcos["obb"]["nms"]),
     }, {
@@ -2719,6 +3241,9 @@ def main():
         "launches_field_cli": field_cli["launches_rgb"]["scatter_add"],
         "launches_field_cli_fast": field_cli["launches_fast"]["scatter_add"],
         "launches_fleet": fleet["launches_rgb"]["scatter_add"],
+        "launches_fleet_dist": {"ranks": dist["ranks"], "steps": DIST_FLEET_STEPS["train"],
+                                "rank0": dist["fleet"]["launches"]["scatter_add"]},
+        "launches_field_sharded": dist_ref["field_b3_launches_per_rank"],
         **{case: {k: timed[k] for k in (
             "n", "w", "rows", "levels", "plan", "ms", "device_ms", "call_device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
@@ -2751,4 +3276,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-child"]:
+        dist_child(sys.argv[2:])
+    else:
+        main()

@@ -1,4 +1,5 @@
-"""What the detector CLIs share: the log set-up and the eval report."""
+"""What the CLIs share: the log set-up, the eval report and the summary
+printed by rank 0."""
 from __future__ import annotations
 
 import json
@@ -26,3 +27,12 @@ def report_eval(metrics: dict, save_path: str) -> None:
         os.makedirs(save_path, exist_ok=True)
         with open(os.path.join(save_path, "eval.json"), "w") as f:
             json.dump(metrics, f, indent=2)
+
+
+def finish(summary: dict) -> None:
+    """Print a run's summary as JSON on rank 0 (every process outside
+    ``torchrun``)."""
+    from instance_nerf_tpu_torch.parallel.mesh import is_main
+
+    if is_main():
+        print(json.dumps(summary))

@@ -19,13 +19,17 @@ checkpoint directory of the port or a flax params ``.npz``.
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode eval --features_path D/features \
         --boxes_path D/metadata --dataset_split D/dataset_split.json --save_path OUT --save_results
     python -m instance_nerf_tpu_torch.cli.run_fcos --mode profile --rotated_bbox
+    # data-parallel over 4 cards (each rank its rows of every batch; the
+    # RPN and RCNN CLIs launch the same way); --device cpu trains over gloo
+    python -m torch.distributed.run --nproc_per_node 4 -m instance_nerf_tpu_torch.cli.run_fcos \\
+        --mode train --features_path D/features ... --save_path OUT
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-from instance_nerf_tpu_torch.cli.common import report_eval, setup_logging
+from instance_nerf_tpu_torch.cli.common import finish, report_eval, setup_logging
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,7 +112,7 @@ def main(argv=None):
 
     trainer = FCOSTrainer(config_from_args(args), device=args.device)
     if args.mode == "train":
-        print(json.dumps(trainer.train_loop()))
+        finish(trainer.train_loop())
         return
     trainer.init_state()
     if args.mode == "eval":

@@ -1,8 +1,8 @@
-"""Fleet CLI: batched multi-scene instance-field training on one card
-(PyTorch counterpart of ``instance_nerf_tpu.cli.run_fleet``). A fleet of
-fields advances in lock-step as one batched field
-(``train/multiscene.py``). Runs on the card unless ``--device cpu`` is
-given.
+"""Fleet CLI: batched multi-scene instance-field training (PyTorch
+counterpart of ``instance_nerf_tpu.cli.run_fleet``). A fleet of fields
+advances in lock-step as one batched field (``train/multiscene.py``). Runs
+on the card unless ``--device cpu`` is given; under ``torchrun`` the fleet
+splits over the ranks' cards (gloo with ``--device cpu``).
 
 Usage:
   # stage A: radiance fields for every scene under ROOT
@@ -13,13 +13,17 @@ Usage:
       --checkpoint OUT --save_path OUT
   # aggregate rays/s, step ms, peak bytes, busy share, top kernels
   python -m ... --mode benchmark --steps 64
+  # the fleet split over 4 cards
+  python -m torch.distributed.run --nproc_per_node 4 -m instance_nerf_tpu_torch.cli.run_fleet \\
+      --scenes 'ROOT/scene_*' --steps 20000 --save_path OUT --pallas_grad
 """
 from __future__ import annotations
 
 import argparse
 import glob
-import json
 import os
+
+from instance_nerf_tpu_torch.cli.common import finish
 
 
 def build_parser():
@@ -128,7 +132,7 @@ def main(argv=None):
             out = {"B": len(scenes), "n_rays": args.n_rays,
                    "aggregate_rays_per_s": len(scenes) * args.n_rays * args.steps / dt,
                    "step_ms": dt / args.steps * 1e3, "clock": "host"}
-        print(json.dumps(out))
+        finish(out)
         return out
     done = 0
     chunk = args.save_every or args.steps
@@ -142,7 +146,7 @@ def main(argv=None):
             tr.save(args.save_path, step=done, metrics=metrics, background=done < args.steps)
     tr.wait_for_save()
     out = {"scenes": len(scenes), "steps": args.steps, "stage": stage, **metrics}
-    print(json.dumps(out))
+    finish(out)
     return out
 
 

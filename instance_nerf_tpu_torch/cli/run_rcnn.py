@@ -26,7 +26,7 @@ import argparse
 import json
 import os
 
-from instance_nerf_tpu_torch.cli.common import report_eval, setup_logging
+from instance_nerf_tpu_torch.cli.common import finish, report_eval, setup_logging
 
 
 def build_parser():
@@ -129,7 +129,7 @@ def main(argv=None):
 
     trainer = RCNNTrainer(config_from_args(args), device=args.device)
     if args.mode == "train":
-        print(json.dumps(trainer.train_loop()))
+        finish(trainer.train_loop())
         return
     trainer.init_state()
     if args.mode == "eval":

@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from instance_nerf_tpu_torch.cli.common import report_eval, setup_logging
+from instance_nerf_tpu_torch.cli.common import finish, report_eval, setup_logging
 
 
 def build_parser():
@@ -124,7 +124,7 @@ def main(argv=None):
 
     trainer = RPNTrainer(config_from_args(args), device=args.device)
     if args.mode == "train":
-        print(json.dumps(trainer.train_loop()))
+        finish(trainer.train_loop())
         return
     trainer.init_state()
     if args.mode == "eval":

@@ -91,6 +91,31 @@ def rotate_and_scale(
     return out, boxes
 
 
+def draw_augment(rng: np.random.Generator, obb: bool, flip_prob: float = 0.0,
+                 rotate_prob: float = 0.0, rot_scale_prob: float = 0.0) -> tuple:
+    """The draws of ``augment_rpn_inputs`` for one scene with (``obb``) or
+    without OBB boxes, in its order: (rot90, flip W, flip L, (angle, scale)
+    of the rotate+scale or None)."""
+    rot = rng.random() < rotate_prob
+    flips = tuple(rng.random() < flip_prob for _ in (0, 1))
+    rs = None
+    if obb and rng.random() < rot_scale_prob:
+        rs = (rng.uniform(-np.pi / 18, np.pi / 18), rng.uniform(0.9, 1.1))
+    return (rot, *flips, rs)
+
+
+def apply_augment(rgbsigma: np.ndarray, boxes: np.ndarray | None, draws: tuple):
+    rot, flip_w, flip_l, rs = draws
+    if rot:
+        rgbsigma, boxes = rotate90_z(rgbsigma, boxes)
+    for axis, flip in ((0, flip_w), (1, flip_l)):
+        if flip:
+            rgbsigma, boxes = flip_axis(rgbsigma, boxes, axis)
+    if rs is not None:
+        rgbsigma, boxes = rotate_and_scale(rgbsigma, boxes, *rs)
+    return rgbsigma, boxes
+
+
 def augment_rpn_inputs(
     rng: np.random.Generator,
     rgbsigma: np.ndarray,
@@ -100,13 +125,6 @@ def augment_rpn_inputs(
     rot_scale_prob: float = 0.0,
 ):
     """Compose the reference's augmentation schedule (z-up)."""
-    if rng.random() < rotate_prob:
-        rgbsigma, boxes = rotate90_z(rgbsigma, boxes)
-    for axis in (0, 1):
-        if rng.random() < flip_prob:
-            rgbsigma, boxes = flip_axis(rgbsigma, boxes, axis)
-    if boxes is not None and boxes.shape[1] == 7 and rng.random() < rot_scale_prob:
-        angle = rng.uniform(-np.pi / 18, np.pi / 18)
-        scale = rng.uniform(0.9, 1.1)
-        rgbsigma, boxes = rotate_and_scale(rgbsigma, boxes, angle, scale)
-    return rgbsigma, boxes
+    obb = boxes is not None and boxes.shape[1] == 7
+    return apply_augment(rgbsigma, boxes,
+                         draw_augment(rng, obb, flip_prob, rotate_prob, rot_scale_prob))

@@ -29,7 +29,7 @@ from typing import Sequence
 
 import numpy as np
 
-from instance_nerf_tpu_torch.data.augment import augment_rpn_inputs
+from instance_nerf_tpu_torch.data.augment import augment_rpn_inputs, draw_augment
 
 # 3D-FRONT NYU40 subset; remapped to 1..10, 0 = background
 # (ref: datasets.py:829-862)
@@ -203,6 +203,23 @@ class RPNDataset:
             )
         return scene, grid, boxes
 
+    def _has_obb(self, scene: str) -> bool:
+        """Whether the scene's boxes are OBBs (seven numbers), without
+        loading its grid."""
+        if scene in self._cache:
+            boxes = self._cache[scene][1]
+            return boxes is not None and boxes.shape[1] == 7
+        if self.boxes_path is None:
+            return False
+        npy = os.path.join(self.boxes_path, scene + ".npy")
+        return os.path.isfile(npy) and np.load(npy, mmap_mode="r").shape[1] == 7
+
+    def skip(self, index: int) -> None:
+        """Take the augmentation draws ``get(index, augment=True)`` would,
+        without loading the scene (another rank's row of a batch)."""
+        draw_augment(self.rng, self._has_obb(self.scenes[index]), self.flip_prob,
+                     self.rotate_prob, self.rot_scale_prob)
+
     def batch(
         self,
         indices: Sequence[int],
@@ -210,7 +227,22 @@ class RPNDataset:
         max_gt: int = 64,
         box_dim: int = 6,
         augment: bool = False,
+        rows: tuple | None = None,
     ) -> RPNBatch:
+        """The scenes ``indices`` padded to ``pad_shape``; ``rows = (lo,
+        hi)`` loads only ``indices[lo:hi]`` (a rank's share), the others'
+        augmentation draws taken and dropped, so every rank's draws are
+        those of the whole batch."""
+        if rows is not None:
+            lo, hi = rows
+            if augment:
+                for idx in indices[:lo]:
+                    self.skip(idx)
+            out = self.batch(indices[lo:hi], pad_shape, max_gt, box_dim, augment)
+            if augment:
+                for idx in indices[hi:]:
+                    self.skip(idx)
+            return out
         n = len(indices)
         grids = np.zeros((n, *pad_shape, 4), np.float32)
         sizes = np.zeros((n, 3), np.float32)

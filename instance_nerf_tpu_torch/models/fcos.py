@@ -370,11 +370,21 @@ def fcos_loss(
     use_additional_l1_loss: bool = False,
     proj2d_loss_weight: float = 0.0,
     proj2d_res: int = 160,
+    dist_sum=None,
 ) -> dict:
-    """The FCOS loss on one device: focal cls loss over the un-padded
-    locations, centerness-weighted box loss and centerness BCE over the
-    positives, each normalised as the reference does. Computed in f32
-    whatever the head's dtype.
+    """The FCOS loss: focal cls loss over the un-padded locations,
+    centerness-weighted box loss and centerness BCE over the positives,
+    each normalised as the reference does. Computed in f32 whatever the
+    head's dtype.
+
+    ``dist_sum`` (the JAX loss's ``axis_name`` hook) maps this rank's
+    positive count and centerness sum to their sums over the ranks of a
+    data-parallel step (``parallel/mesh.py:Shard.sum``): each loss is then
+    this rank's numerator over the global batch's normaliser, and the
+    losses and their gradients sum over the ranks to the global batch's.
+    The JAX step under GSPMD sums over the global batch (``world`` 1), so
+    the normaliser is the global count, not its mean over ranks.
+    ``num_pos`` is this rank's count.
 
     The box losses are the JAX package's masked sums. The OBB losses are
     computed on the positive rows alone: the rest contribute exactly 0 to
@@ -392,13 +402,15 @@ def fcos_loss(
     pos = (labels > 0) & pad_mask
     zero = torch.zeros_like(logits)
 
-    num_pos_global = pos.sum().to(torch.float32)
+    num_pos = pos.sum().to(torch.float32)
+    ctr_t = torch.where(pos, centerness_target(reg_t[..., :6]), zero)
+    num_pos_global, sum_ctr = num_pos, ctr_t.sum()
+    if dist_sum is not None:
+        num_pos_global, sum_ctr = dist_sum(torch.stack([num_pos, sum_ctr]))
     num_pos_avg = num_pos_global.clamp_min(1.0)
+    sum_ctr_avg = sum_ctr.clamp_min(1e-6)
     cls = sigmoid_focal_loss(logits, labels)
     cls_loss = torch.where(pad_mask, cls, zero).sum() / num_pos_avg
-
-    ctr_t = torch.where(pos, centerness_target(reg_t[..., :6]), zero)
-    sum_ctr_avg = ctr_t.sum().clamp_min(1e-6)
 
     if iou_loss_type == "smooth_l1" or not use_obb:
         # benign values off the positives, so no inf or NaN leaks into the
@@ -432,7 +444,7 @@ def fcos_loss(
     ctr_bce = optax_sigmoid_ce(centerness, ctr_t)
     ctr_loss = torch.where(pos, ctr_bce, zero).sum() / num_pos_avg
     return {"loss_cls": cls_loss, "loss_reg": reg_loss, "loss_centerness": ctr_loss,
-            "num_pos": num_pos_global}
+            "num_pos": num_pos}
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

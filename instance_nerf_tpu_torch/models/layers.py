@@ -160,7 +160,24 @@ def max_pool_3d(x: torch.Tensor, window: int = 2, stride: int = 2,
     if any(lo or hi for lo, hi in pads):
         xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi],
                    value=-math.inf)
+    if stride < window and xc.is_cuda and torch.are_deterministic_algorithms_enabled():
+        return to_ndhwc(_max_pool_by_views(xc, window, stride))
     return to_ndhwc(F.max_pool3d(xc, window, stride))
+
+
+def _max_pool_by_views(xc: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """``F.max_pool3d(xc, window, stride)`` as the max over the window's
+    strided views, for deterministic mode: the CUDA pool's backward adds
+    overlapping windows' gradients with atomics, in no fixed order; here each
+    window's gradient goes to its first maximum (the pool's choice, the views
+    taken in its d, h, w scan order) and the views' gradients add in a fixed
+    order."""
+    out = [(n - window) // stride + 1 for n in xc.shape[2:]]
+    views = [xc[:, :, i:i + stride * (out[0] - 1) + 1:stride,
+                j:j + stride * (out[1] - 1) + 1:stride,
+                k:k + stride * (out[2] - 1) + 1:stride]
+             for i in range(window) for j in range(window) for k in range(window)]
+    return torch.stack(views).max(dim=0).values
 
 
 def upsample_nearest_to(x: torch.Tensor, target_spatial: Sequence[int]) -> torch.Tensor:

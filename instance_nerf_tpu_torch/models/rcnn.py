@@ -137,13 +137,16 @@ def select_training_samples(
     box_dim: int = 6,
     uniforms: torch.Tensor | None = None,  # (N, 2, P [+ K])
     generator: torch.Generator | None = None,
+    shard=None,
 ) -> SampledRois:
     """Per scene: label the proposals (the gt appended) by IoU with the low-
     quality matches recovered, draw a balanced sample (``uniforms`` per
     scene, else drawn from ``generator``), pack it into min(S, P + K) slots
     and encode the box targets. ``box_dim = 8`` (OBB RCNN): the gt are
     ``(N, K, 7)`` OBBs, matched (and appended) by their AABB
-    (``obb2hbb_3d``), and the targets are ``MidpointOffsetCoder`` deltas."""
+    (``obb2hbb_3d``), and the targets are ``MidpointOffsetCoder`` deltas.
+    With ``shard`` (a data-parallel step's rows) the draws are its rows of
+    the global batch's."""
     coder = MidpointOffsetCoder() if box_dim == 8 else AABBCoder()
     gt_aabb = gt_boxes if gt_boxes.shape[-1] == 6 else obb2hbb_3d(gt_boxes)
     if append_gt:
@@ -151,7 +154,8 @@ def select_training_samples(
         prop_valid = torch.cat([prop_valid, gt_mask], dim=1)
     if uniforms is None:
         n, p = prop_valid.shape
-        uniforms = torch.rand((n, 2, p), generator=generator, device=prop_valid.device)
+        uniforms = (torch.rand((n, 2, p), generator=generator, device=prop_valid.device)
+                    if shard is None else shard.rand((2, p), generator, prop_valid.device))
     out = []
     for props, pvalid, gtb, gta, gtl, gtm, u in zip(proposals, prop_valid, gt_boxes,
                                                      gt_aabb, gt_labels, gt_mask, uniforms):
@@ -179,9 +183,11 @@ def select_training_samples(
     return SampledRois(*(torch.stack(f) for f in zip(*out)))
 
 
-def fastrcnn_loss(class_logits, box_regression, labels, reg_targets, valid):
+def fastrcnn_loss(class_logits, box_regression, labels, reg_targets, valid, n_valid=None):
     """CE over the sampled rois + smooth-L1 of the positives' own-class
-    deltas, both over the sampled count, in f32.
+    deltas, both over the sampled count, in f32. ``n_valid`` replaces the
+    sampled count of these rows (a data-parallel step passes the global
+    batch's).
 
     class_logits (N, S, C); box_regression (N, S, C, D); labels, valid (N, S)."""
     if box_regression.shape[-1] != reg_targets.shape[-1]:
@@ -196,7 +202,7 @@ def fastrcnn_loss(class_logits, box_regression, labels, reg_targets, valid):
     safe_labels = labels.clamp_min(0)
     logp = torch.log_softmax(class_logits, dim=-1)
     ce = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    n_valid = valid.sum().clamp_min(1)
+    n_valid = (valid.sum() if n_valid is None else n_valid).clamp_min(1)
     zero = torch.zeros_like(ce)
     classification_loss = torch.where(valid, ce, zero).sum() / n_valid
     pos = (labels >= 1) & valid

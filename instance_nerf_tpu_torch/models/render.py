@@ -313,22 +313,35 @@ def _check_buckets(k_buckets, n_samples: int) -> None:
                          f"{k_buckets}")
 
 
+def local_route(k_buckets):
+    """The routing of ``k_buckets`` over the rays at hand: ``route(hits (...,
+    R)) -> (order, [(rays, K), ...])``, the rays sorted (stably) by hits
+    and cut into the buckets' shares."""
+
+    def route(hits):
+        order = torch.argsort(hits, dim=-1, stable=True)  # ascending hit count
+        return order, bucket_sizes(hits.shape[-1], k_buckets)
+
+    return route
+
+
 def _bucket_render(model_apply, origins, dirs, t, dt, occ_all, occ, valid, k_buckets,
-                   fuse: bool, with_instance, use_coarse: bool, stage) -> RenderOut:
+                   fuse: bool, with_instance, use_coarse: bool, stage,
+                   route=None) -> RenderOut:
     """Adaptive-K routing: the rays sorted (stably) by occupancy hits, the
-    emptiest share compacted with the smallest K. Fused: ONE top-K at Kmax
-    in ray order, each bucket slicing its first K columns, and one field
-    query over all buckets' points; unfused: one compaction and query per
-    bucket. The buckets' outputs are put back in the caller's ray order."""
+    emptiest share compacted with the smallest K (``route``, by default
+    ``local_route``). Fused: ONE top-K at Kmax in ray order, each bucket
+    slicing its first K columns, and one field query over all buckets'
+    points; unfused: one compaction and query per bucket. The buckets'
+    outputs are put back in the caller's ray order."""
     lead = origins.shape[:-2]
     with stage("compact"):
         hits = occ_all.sum(dim=-1)
         # invalid rays have arbitrary occupancy: they go to the cheapest
         # bucket (``valid`` zeroes their weights anyway)
         hits = torch.where(valid, hits, -1.0)
-        order = torch.argsort(hits, dim=-1, stable=True)  # ascending hit count
-        sizes = bucket_sizes(origins.shape[-2], k_buckets)
-        pad_k = max(k for _, k in sizes)
+        order, sizes = (route or local_route(k_buckets))(hits)
+        pad_k = max(int(k) for _, k in k_buckets)
         sels, start = [], 0
         for n, _ in sizes:
             sels.append(order[..., start:start + n])
@@ -382,7 +395,7 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
                 with_instance: bool = True, k_occupied: int | None = None,
                 occ_coarse_res: int | None = None, k_buckets: tuple | None = None,
                 fuse_buckets: bool = True, ray_jitter: bool = False, generator=None,
-                jitter=None, stage=no_stage) -> RenderOut:
+                jitter=None, stage=no_stage, route=None) -> RenderOut:
     """Full render: AABB clip -> stratified samples -> occupancy -> (fixed-K
     compaction) -> field query -> composite. ``model_apply(xyz, viewdir)``
     returns (sigma_raw, rgb, instance_logits or None).
@@ -392,8 +405,10 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
     selected on the max-pooled coarse grid and the fine grid masks the K
     compacted samples. ``k_buckets`` ``((frac, K), ...)``: adaptive-K
     routing (overrides ``k_occupied``), fused into one field query with
-    ``fuse_buckets``. ``stage(name)`` opens the ``occupancy``, ``compact``
-    and ``composite_loss`` spans.
+    ``fuse_buckets``; ``route`` replaces the routing over the rays at hand
+    (``local_route``; a scene's rays split over ranks route globally,
+    ``train/multiscene.py``). ``stage(name)`` opens the ``occupancy``,
+    ``compact`` and ``composite_loss`` spans.
 
     Rays may carry a leading scene axis (``origins (B, R, 3)``, a fleet's
     occupancy grid and field): each scene is routed and compacted on its
@@ -422,7 +437,8 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
                 occ_all = occ.occupied(xyz_c)  # (R, S)
     if buckets:
         return _bucket_render(model_apply, origins, dirs, t, dt, occ_all, occ, valid,
-                              k_buckets, fuse_buckets, with_instance, use_coarse, stage)
+                              k_buckets, fuse_buckets, with_instance, use_coarse, stage,
+                              route)
     if compact:
         return _compact_render(model_apply, origins, dirs, t, dt, occ_all, occ,
                                k_occupied, with_instance, valid, use_coarse, stage)

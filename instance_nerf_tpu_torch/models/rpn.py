@@ -188,6 +188,7 @@ def rpn_loss(
     proj2d: bool = True,
     uniforms: torch.Tensor | None = None,  # (N, 2, R)
     generator: torch.Generator | None = None,
+    shard=None,
 ) -> dict:
     """BCE objectness over the sampled anchors, box regression on the
     positives over the sampled count, and the 2D projection loss over the
@@ -198,7 +199,12 @@ def rpn_loss(
     computed on the positive rows alone: the rest add exactly 0 to the loss
     and the gradient in the JAX package's masked sums, so both are equal.
     The IoU-type losses take OBBs: the JAX package's would read an AABB's
-    six numbers as an OBB's seven (its gather clamps index 6 to 5)."""
+    six numbers as an OBB's seven (its gather clamps index 6 to 5).
+
+    ``shard`` (``parallel/mesh.py:Shard``, a data-parallel step): these
+    are its rows of the global batch; the draws are its rows of the global
+    batch's, and the sampled and positive counts are summed over the ranks,
+    so that the losses sum over the ranks to the global batch's."""
     if reg_loss_type != "smooth_l1" and not rotated:
         raise ValueError(f"reg_loss_type {reg_loss_type!r} needs rotated boxes")
     objectness = objectness.float()
@@ -210,12 +216,16 @@ def rpn_loss(
             anchors, gt_boxes[i], gt_mask[i], fg_iou_thresh, bg_iou_thresh,
             None if pad_mask is None else pad_mask[i]) for i in range(n)]
         labels = torch.stack([t.labels for t in targets])
+        if uniforms is None and shard is not None:
+            uniforms = shard.rand((2, labels.shape[-1]), generator, labels.device)
         samples = balanced_sample(labels.to(torch.int64), batch_size_per_mesh,
                                   positive_fraction, uniforms=uniforms, generator=generator)
     pos = samples.pos_mask
     sampled = pos | samples.neg_mask
-    num_sampled = sampled.sum().clamp_min(1)
-    num_pos = pos.sum().clamp_min(1)
+    num_sampled, num_pos = sampled.sum(), pos.sum()
+    if shard is not None:
+        num_sampled, num_pos = shard.sum(torch.stack([num_sampled, num_pos]))
+    num_sampled, num_pos = num_sampled.clamp_min(1), num_pos.clamp_min(1)
 
     bce = optax_sigmoid_ce(objectness, labels)
     losses = {"loss_objectness":

@@ -1,7 +1,6 @@
-"""Training steps on one device (PyTorch counterpart of
-``instance_nerf_tpu.parallel.train_step``; the mesh-sharded steps come
-with slice 7, and the ``lax.scan`` dispatch of several steps is the train
-loops' ``steps_per_call``, ``train/loop.py``).
+"""Training steps (PyTorch counterpart of
+``instance_nerf_tpu.parallel.train_step``; the ``lax.scan`` dispatch of
+several steps is the train loops' ``steps_per_call``, ``train/loop.py``).
 
 ``make_optimizer`` is the JAX package's recipe, written out in optax's op
 order: clip by global norm (``(g / norm) * max_norm`` where the norm
@@ -17,6 +16,14 @@ each a span of ``stage`` (see ``train/timing.py``). Metrics stay on the
 device; a step reads back from the device only the counts that its gathers
 of positive rows (the RPN and OBB losses) and its checks for a scene without
 gt need.
+
+A step given a ``shard`` (``parallel/mesh.py:Shard``) is one rank's part of
+a data-parallel step over a process group, the JAX step under a mesh: its
+losses divide this rank's numerators by the global batch's counts, summed
+over the ranks in the forward, and ``apply_step`` SUMs the gradients and
+the metrics over the ranks in flat buckets (the span ``allreduce``) before
+the clip, so every rank clips the global batch's gradient by its global
+norm and takes the same update.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from instance_nerf_tpu_torch.models.fcos import fcos_loss, padding_mask
 from instance_nerf_tpu_torch.models.rpn import anchor_padding_mask, rpn_loss
 from instance_nerf_tpu_torch.ops.nms import no_stage
+from instance_nerf_tpu_torch.parallel.mesh import all_reduce_sum, distributed
 
 
 def cosine_onecycle_schedule(transition_steps: int, peak_value: float,
@@ -156,24 +164,45 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def apply_step(state: TrainState, total: torch.Tensor, losses: dict, stage=no_stage):
-    """Backward ``total`` and update: (state, metrics on the device)."""
+def apply_step(state: TrainState, total: torch.Tensor, losses: dict, stage=no_stage,
+               shard=None):
+    """Backward ``total`` and update: (state, metrics on the device). Under a
+    process group with a ``shard``, the gradients and metrics are first
+    summed over the ranks (an idle rank's weighted by 0)."""
+    w = 1.0 if shard is None else shard.weight
     with stage("backward"):
-        total.backward()
-    with stage("optimizer"):
-        state.tx.step()
-    state.step += 1
+        (total if w == 1.0 else total * w).backward()
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total"] = total.detach()
+    grads = None
+    if shard is not None and distributed():
+        with stage("allreduce"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in state.tx.params]
+            keys = list(metrics)
+            summed = all_reduce_sum(grads + [metrics[k].to(torch.float32) * w for k in keys])
+            grads = summed[:len(grads)]
+            metrics = dict(zip(keys, summed[len(grads):]))
+    with stage("optimizer"):
+        state.tx.step(grads)
+    state.step += 1
     return state, metrics
+
+
+def gradient_bytes(state: TrainState) -> int:
+    """Bytes a step's gradient all-reduce moves in its f32 buckets (the
+    trained parameters; the metrics add a few more)."""
+    return 4 * sum(p.numel() for p in state.tx.params)
 
 
 def fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, reg_loss_weight: float = 1.0,
                 center_sampling_radius: float = 1.5, iou_loss_type: str = "iou",
                 use_obb: bool = False, use_additional_l1_loss: bool = False,
-                proj2d_loss_weight: float = 0.0, remat: bool = False, stage=no_stage):
+                proj2d_loss_weight: float = 0.0, remat: bool = False, stage=no_stage,
+                shard=None):
     """One FCOS forward and loss: (total, losses). ``remat`` recomputes the
-    forward in the backward (``torch.utils.checkpoint``)."""
+    forward in the backward (``torch.utils.checkpoint``); ``shard``: these
+    are a data-parallel step's rows."""
     with stage("forward"):
         if remat:
             info, logits, reg, ctr, _ = checkpoint(lambda g: model(g, train=True), grids,
@@ -185,7 +214,8 @@ def fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, reg_loss_weight: fl
             info, logits, reg, ctr, gt_boxes, gt_mask, pad_mask=padding_mask(info, grid_sizes),
             center_sampling_radius=center_sampling_radius, iou_loss_type=iou_loss_type,
             use_obb=use_obb, use_additional_l1_loss=use_additional_l1_loss,
-            proj2d_loss_weight=proj2d_loss_weight)
+            proj2d_loss_weight=proj2d_loss_weight,
+            dist_sum=None if shard is None else shard.sum)
         total = (losses["loss_cls"] + reg_loss_weight * losses["loss_reg"]
                  + losses["loss_centerness"])
     return total, losses
@@ -196,23 +226,24 @@ def make_fcos_train_step(model, reg_loss_weight: float = 1.0,
                          use_obb: bool = False, use_additional_l1_loss: bool = False,
                          proj2d_loss_weight: float = 0.0, remat: bool = False,
                          stage=no_stage):
-    """``step(state, grids, grid_sizes, gt_boxes, gt_mask) -> (state,
-    metrics)``: the losses, ``total`` and ``num_pos``."""
+    """``step(state, grids, grid_sizes, gt_boxes, gt_mask, shard=None) ->
+    (state, metrics)``: the losses, ``total`` and ``num_pos``."""
     kw = dict(reg_loss_weight=reg_loss_weight, center_sampling_radius=center_sampling_radius,
               iou_loss_type=iou_loss_type, use_obb=use_obb,
               use_additional_l1_loss=use_additional_l1_loss,
               proj2d_loss_weight=proj2d_loss_weight, remat=remat, stage=stage)
 
-    def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask):
+    def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask, shard=None):
         model.zero_grad(set_to_none=True)
-        total, losses = fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, **kw)
-        return apply_step(state, total, losses, stage)
+        total, losses = fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, shard=shard,
+                                    **kw)
+        return apply_step(state, total, losses, stage, shard)
 
     return step
 
 
 def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-               generator=None, stage=no_stage):
+               generator=None, stage=no_stage, shard=None):
     """One anchor-RPN forward and loss: (total, losses with ``total``).
     ``cfg`` is an ``RPNConfig``; only its loss and matching fields are read."""
     with stage("forward"):
@@ -226,7 +257,7 @@ def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
             pad_mask=anchor_padding_mask(anchors_l, grid_sizes, tuple(cfg.fpn_strides)),
             rotated=cfg.rotated_bbox, reg_loss_type=cfg.reg_loss_type,
             max_mesh_dim=cfg.resolution, proj2d=cfg.proj2d_loss_weight > 0,
-            uniforms=uniforms, generator=generator)
+            uniforms=uniforms, generator=generator, shard=shard)
         total = losses["loss_objectness"] + losses["loss_rpn_box_reg"]
         if cfg.proj2d_loss_weight > 0:
             total = total + cfg.proj2d_loss_weight * losses["loss_rpn_box_reg_2d"]
@@ -236,14 +267,14 @@ def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
 
 def make_rpn_train_step(model, cfg, stage=no_stage):
     """``step(state, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-    generator=None) -> (state, losses)``; the sampler's draws are
+    generator=None, shard=None) -> (state, losses)``; the sampler's draws are
     ``uniforms`` (N, 2, R) or come from ``generator``."""
 
     def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-             generator=None):
+             generator=None, shard=None):
         model.zero_grad(set_to_none=True)
         total, losses = rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask,
-                                   uniforms, generator, stage)
-        return apply_step(state, total, losses, stage)
+                                   uniforms, generator, stage, shard)
+        return apply_step(state, total, losses, stage, shard)
 
     return step

@@ -10,6 +10,11 @@ scene index and augmented there (``device_augment``). ``predict_scene``
 pads a scene's grid to multiples of 32, runs the backbone and the FCOS head
 and post-processes the locations of the un-padded region: in AABB mode the NMS is kernel B1,
 in OBB mode the rotated IoU of the valid candidates swept by kernel B2.
+
+Under ``torchrun`` (or given a ``mesh``) the trainer is one rank of a
+data-parallel step (``parallel/mesh.py``): each rank, bound to its own
+card, loads its rows of every global batch, the losses and gradients are
+summed over the ranks, and evals and checkpoints run on rank 0.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from instance_nerf_tpu_torch.models.fcos import (
     padding_mask,
     sigmoid,
 )
+from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
 from instance_nerf_tpu_torch.parallel.train_step import (
     TrainState,
     make_fcos_train_step,
@@ -57,7 +63,7 @@ log = logging.getLogger("fcos_trainer")
 @dataclass
 class FCOSConfig:
     """The JAX package's ``FCOSConfig``. ``n_spatial > 1`` (a mesh's spatial
-    axis over several cards) raises: the multi-card steps come with slice 7."""
+    axis, the voxel W axis split over cards) raises: it comes with slice 7b."""
 
     # data
     features_path: str = ""
@@ -159,12 +165,16 @@ def init_fcos_params(model: FCOSOverNeRF, seed: int) -> None:
 
 
 class FCOSTrainer:
-    def __init__(self, cfg: FCOSConfig | None = None, device="cuda"):
+    def __init__(self, cfg: FCOSConfig | None = None, device="cuda", mesh=None):
         self.cfg = cfg = cfg or FCOSConfig()
         if cfg.n_spatial > 1:
-            raise NotImplementedError("n_spatial > 1 (a spatial mesh over several cards) "
-                                      "comes with slice 7 (ROADMAP queue A)")
+            raise NotImplementedError("n_spatial > 1 (the voxel W axis split over cards, with "
+                                      "a halo exchange in every conv) comes with slice 7b "
+                                      "(ROADMAP queue A)")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -290,6 +300,7 @@ class FCOSTrainer:
         step_fn = self.train_step_fn()
         pad_shape = (cfg.resolution,) * 3
         box_dim = 7 if cfg.rotated_bbox else 6
+        shard = batch_shard(self.mesh, cfg.batch_size)
         loop_kw = {}
         if cfg.device_data:
             store = self.device_store(train_ds)
@@ -299,14 +310,18 @@ class FCOSTrainer:
 
             def load(idx):
                 draws = torch.rand((len(idx), 3), generator=gen, device=self.device)
+                if shard is not None:
+                    idx, draws = shard.take(idx), shard.take(draws)
                 return self.store_batch(store, idx, draws)
         else:
             def load(idx):
+                rows = None if shard is None else (shard.lo, shard.hi)
                 return device_batch(train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt,
-                                                   box_dim=box_dim, augment=True), self.device)
+                                                   box_dim=box_dim, augment=True, rows=rows),
+                                    self.device)
 
         def step(batch):
-            self.state, metrics = step_fn(self.state, *batch)
+            self.state, metrics = step_fn(self.state, *batch, shard=shard)
             return metrics
 
         def save(gstep, metrics):
@@ -330,10 +345,13 @@ class FCOSTrainer:
         if self.state is None:
             self.init_state()
         args = self._card_train_batch(batch, shape)
+        shard = batch_shard(self.mesh, batch)
+        if shard is not None:
+            args = tuple(shard.take(a) for a in args)
         step_fn = self.train_step_fn()
 
         def run():
-            self.state, metrics = step_fn(self.state, *args)
+            self.state, metrics = step_fn(self.state, *args, shard=shard)
             return metrics
 
         return run
@@ -342,13 +360,16 @@ class FCOSTrainer:
         """Train steps on the JAX trainer's synthetic batch
         (``train/loop.py:synthetic_batch``) timed with CUDA events
         (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
-        warmed steps, scenes/s, peak device memory, every step's losses."""
+        warmed steps, scenes/s, peak device memory, every step's losses. Under
+        a mesh ``batch`` is the global batch: each rank times its step with its
+        all-reduce, and scenes/s is the global batch's."""
         return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
                                reps=reps, warmup=warmup)
 
     def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
         """Where a train step's time goes (``train/timing.py:profile_ms``), by
-        span: forward, loss (targets included), backward, optimizer."""
+        span: forward, loss (targets included), backward, allreduce (under a
+        mesh), optimizer."""
         return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
                           reps=reps, warmup=warmup, top=top, watch=())
 

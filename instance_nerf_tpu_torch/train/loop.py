@@ -12,6 +12,11 @@ package scans them in one dispatch), then reads ``total`` once, and logs
 when the global step passed a multiple of ``log_interval`` in it. The
 device-resident loops of the JAX trainers draw their batches otherwise
 (``device_indices``).
+
+Over a process group (``parallel/mesh.py``) every rank draws the same
+permutations and global batch indices and loads its own rows of each
+batch (the trainers' ``load``); logging, evals and checkpoints run on rank
+0 while the other ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import time
 
 import numpy as np
 import torch
+
+from instance_nerf_tpu_torch.parallel.mesh import barrier, is_main
 
 
 def padded_indices(rng, n_scenes: int, bs: int, steps: int) -> list:
@@ -60,7 +67,8 @@ def train_epochs(cfg, n_scenes: int, start_epoch: int, load, step, evaluate=None
     """Train from ``start_epoch`` to ``cfg.num_epochs`` (or
     ``stop_after_epochs`` epochs, where the config has it).
 
-    ``load(indices)`` builds a batch, ``step(batch)`` runs one update and
+    ``load(indices)`` builds a batch (this rank's rows of the global batch
+    ``indices``), ``step(batch)`` runs one update and
     returns its metrics (device tensors), ``evaluate()`` the val metrics or
     None without a val split, ``save(gstep, metrics)`` writes a checkpoint.
     ``rng`` (default ``default_rng(cfg.seed)``) and ``epoch_indices(rng,
@@ -68,6 +76,7 @@ def train_epochs(cfg, n_scenes: int, start_epoch: int, load, step, evaluate=None
     epochs, steps and dispatches run, seconds spent loading batches and
     stepping, the last step's metrics and the last eval's."""
     log = log or logging.getLogger("train")
+    main = is_main()
     bs = cfg.batch_size
     spc = max(1, getattr(cfg, "steps_per_call", 1))
     steps_per_epoch = max(1, n_scenes // bs)
@@ -100,21 +109,26 @@ def train_epochs(cfg, n_scenes: int, start_epoch: int, load, step, evaluate=None
             s += chunk
             out["steps"] += chunk
             out["calls"] += 1
-            if gstep % cfg.log_interval < chunk:
+            if gstep % cfg.log_interval < chunk and main:
                 log.info("epoch %d step %d: total=%.4f %s (%.2fs/it)", epoch, gstep, total,
                          " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()
                                   if k != "total"), (time.perf_counter() - t0) / s)
         out["epochs"] += 1
         out["last"] = {k: float(v) for k, v in metrics.items()}
         at_eval = (epoch + 1) % cfg.eval_interval == 0
-        val = evaluate() if at_eval and evaluate is not None else None
+        val = evaluate() if at_eval and evaluate is not None and main else None
         if val is not None:
             log.info("epoch %d eval: %s", epoch, val)
             out["eval"] = val
         if save is not None and (at_eval or (save_interval and (epoch + 1) % save_interval == 0)):
-            save(gstep, val)
+            if main:
+                save(gstep, val)
+        if at_eval or save is not None:
+            barrier()
     if save is not None:
-        save(gstep, None)
+        if main:
+            save(gstep, None)
+        barrier()
     out["gstep"] = gstep
     return out
 

@@ -12,6 +12,19 @@ or, with ``device_data``, from the images and masks kept on the card
 ``save(background=True)`` snapshots the state on the card at call time
 (the optimizer updates the live tensors in place) and writes it from a
 thread while training goes on.
+
+Over a process group (``torchrun``, or a given ``mesh``) the fleet is the
+JAX trainer's over its mesh, ``make_mesh(n_data=min(B, n), n_spatial=n //
+min(B, n))``: the scenes split in contiguous blocks over the data ranks,
+each rank's batched field holding its B / n_data scenes (one launch of B3
+over them a step, no gradient collective). With fewer scenes than ranks
+each scene's rays split over its ``sp`` group, which sums the scene's
+losses and gradients (``parallel/ngp_train_step.py``) and routes
+``k_buckets`` over the scene's whole ray batch. Every draw (rays, jitter,
+occupancy refresh) is the whole fleet's, each rank taking its block, so a
+split fleet trains as the one-card fleet; occupancy refreshes stay per
+rank. ``save`` gathers the fleet to rank 0, which writes the one-card
+layout; ``restore`` gives each rank its block.
 """
 from __future__ import annotations
 
@@ -27,7 +40,16 @@ from instance_nerf_tpu_torch.data.nerf_dataset import NeRFScene
 from instance_nerf_tpu_torch.kernels import scatter_cuda
 from instance_nerf_tpu_torch.models.hashgrid import density_activation
 from instance_nerf_tpu_torch.models.render import occupancy_cells
-from instance_nerf_tpu_torch.parallel.ngp_train_step import multiscene_loss_and_grads
+from instance_nerf_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    barrier,
+    distributed,
+    is_main,
+    launched_world,
+    make_mesh,
+    under_launcher,
+)
+from instance_nerf_tpu_torch.parallel.ngp_train_step import group_route, multiscene_loss_and_grads
 from instance_nerf_tpu_torch.train.ngp_trainer import (
     NGPConfig,
     adam_init,
@@ -49,15 +71,45 @@ class MultiSceneFieldTrainer:
     is the PER-SCENE ray batch; the scenes share one image size."""
 
     def __init__(self, scenes: Sequence[NeRFScene], cfg: NGPConfig | None = None,
-                 seed: int = 0, device_data: bool = False, device="cuda"):
-        self.scenes = list(scenes)
-        b = len(self.scenes)
+                 seed: int = 0, device_data: bool = False, device="cuda", mesh=None):
+        self.all_scenes = list(scenes)
+        b = self.n_global = len(self.all_scenes)
         self.cfg = cfg = cfg or fast_ngp_config(n_rays=1024)
         self.device = resolve_device(device)
+        if mesh is None and under_launcher():
+            n = launched_world()
+            mesh = make_mesh(n_data=min(b, n), n_spatial=max(1, n // min(b, n)),
+                             device=self.device)
+        self.mesh = mesh
+        self._split = mesh is not None and distributed()
+        self._sl, self._rl = slice(0, b), slice(0, cfg.n_rays)
+        if self._split:
+            if mesh.used < mesh.world:  # on every rank, so that none waits for the others
+                raise ValueError(f"a fleet of {b} scenes on {mesh.world} ranks leaves "
+                                 f"{mesh.world - mesh.used} idle: launch a multiple of "
+                                 "min(B, ranks)")
+            if b % mesh.data_size:
+                raise ValueError(f"a fleet of {b} scenes does not split over "
+                                 f"{mesh.data_size} data ranks")
+            if cfg.n_rays % mesh.n_spatial:
+                raise ValueError(f"n_rays {cfg.n_rays} does not split over {mesh.n_spatial} "
+                                 "ranks a scene")
+            per, r = b // mesh.data_size, cfg.n_rays // mesh.n_spatial
+            self._sl = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+            self._rl = slice(mesh.sp_index * r, (mesh.sp_index + 1) * r)
+            self.device = mesh.device
+        self.scenes = self.all_scenes[self._sl]
+        b = len(self.scenes)
         if cfg.dtype != "bfloat16" and self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         self.model = build_model(cfg, n_scenes=b)
-        init_ngp_params(self.model, seed)  # each scene drawn in turn from one generator
+        if self._split:  # the whole fleet's init, this rank's block of it
+            full = build_model(cfg, n_scenes=self.n_global)
+            init_ngp_params(full, seed)
+            self.model.load_state_dict({k: v[self._sl] for k, v in full.state_dict().items()})
+            del full
+        else:
+            init_ngp_params(self.model, seed)  # each scene drawn in turn from one generator
         self.model.to(self.device)
         self.opt_state = adam_init(self.model)
         g = cfg.occ_res
@@ -79,11 +131,12 @@ class MultiSceneFieldTrainer:
         vectorized (B, R) batch; scenes may differ in view count, not in
         image size."""
         hw0 = self.scenes[0].hw
-        if not all(tuple(s.hw) == tuple(hw0) for s in self.scenes):
+        if not all(tuple(s.hw) == tuple(hw0) for s in self.all_scenes):
             raise ValueError("a multi-scene fleet needs one common image resolution")
         self._hw = hw0
         hwprod = hw0[0] * hw0[1]
-        self._nview = np.asarray([s.num_views for s in self.scenes])
+        self._nview_all = np.asarray([s.num_views for s in self.all_scenes])
+        self._nview = self._nview_all[self._sl]
         self._pose_off = np.concatenate([[0], np.cumsum(self._nview)[:-1]]).astype(np.int64)
         self._pix_off = self._pose_off * hwprod
         self._rgb_all = np.concatenate([np.asarray(s.images, np.float32).reshape(-1, 3)
@@ -152,10 +205,12 @@ class MultiSceneFieldTrainer:
         """The next ``(B, R, ...)`` host batch (o, d, rgb, inst): views,
         pixels and targets drawn in numpy exactly as the JAX trainer's
         ``_batch``, the rays computed from them by ``_rays`` on the device."""
-        b, r = len(self.scenes), self.cfg.n_rays
+        b, r = self.n_global, self.cfg.n_rays
         h, w = self._hw
-        v = (self.np_rng.random((b, r)) * self._nview[:, None]).astype(np.int64)
+        v = (self.np_rng.random((b, r)) * self._nview_all[:, None]).astype(np.int64)
         pix = self.np_rng.integers(0, h * w, (b, r))
+        v, pix = v[self._sl, self._rl], pix[self._sl, self._rl]
+        b, r = v.shape
         lin = self._pix_off[:, None] + v * (h * w) + pix
         rgb = self._rgb_all[lin].astype(np.float32)
         inst = self._inst_all[lin] if self._inst_all is not None else np.zeros((b, r), np.int32)
@@ -168,10 +223,12 @@ class MultiSceneFieldTrainer:
     def _scan_batch(self, k: int):
         """A call's ``(K, B, R)`` view and pixel draws and targets, in the
         JAX trainer's ``_scan_batch`` order (all views, then all pixels)."""
-        b, r = len(self.scenes), self.cfg.n_rays
+        b, r = self.n_global, self.cfg.n_rays
         h, w = self._hw
-        v = (self.np_rng.random((k, b, r)) * self._nview[None, :, None]).astype(np.int32)
+        v = (self.np_rng.random((k, b, r)) * self._nview_all[None, :, None]).astype(np.int32)
         pix = self.np_rng.integers(0, h * w, (k, b, r)).astype(np.int32)
+        v, pix = v[:, self._sl, self._rl], pix[:, self._sl, self._rl]
+        b, r = v.shape[1:]
         lin = self._pix_off[None, :, None] + v.astype(np.int64) * (h * w) + pix
         rgb = self._rgb_all[lin].astype(np.float32)
         inst = (self._inst_all[lin].astype(np.int32) if self._inst_all is not None
@@ -181,12 +238,14 @@ class MultiSceneFieldTrainer:
 
     def _device_batch(self):
         """One batch drawn on the card from the ``device_data`` store."""
-        b, r = len(self.scenes), self.cfg.n_rays
+        b, r = self.n_global, self.cfg.n_rays
         h, w = self._hw
         with self._stage("rays"):
-            u = torch.rand((b, r), generator=self.gen, device=self.device)
+            u = torch.rand((b, r), generator=self.gen, device=self.device)[self._sl, self._rl]
             v = torch.minimum((u * self._nview_dev[:, None]).long(), self._nview_dev[:, None] - 1)
-            pix = torch.randint(0, h * w, (b, r), generator=self.gen, device=self.device)
+            pix = torch.randint(0, h * w, (b, r), generator=self.gen,
+                                device=self.device)[self._sl, self._rl]
+            b = v.shape[0]
             bidx = torch.arange(b, device=self.device)[:, None]
             rgb = self._imgs_dev[bidx, v, pix].to(torch.float32) / 255.0
             inst = (self._masks_dev[bidx, v, pix].to(torch.int32) if self._masks_dev is not None
@@ -197,17 +256,36 @@ class MultiSceneFieldTrainer:
     # -- steps -----------------------------------------------------------------
 
     def loss_and_grads(self, stage: str, o, d, target_rgb, target_inst, jitter=None):
-        return multiscene_loss_and_grads(self.model, self.cfg, stage, self.occ_grids, o, d,
+        """This rank's scenes' losses and gradients (``multiscene_loss_and_grads``);
+        a split fleet's stratified draws are its block of the whole fleet's."""
+        cfg, mesh = self.cfg, self.mesh
+        group = route = None
+        if self._split:
+            if jitter is None:
+                shape = (self.n_global, cfg.n_rays, 1 if cfg.ray_jitter else cfg.n_samples)
+                jitter = torch.rand(shape, generator=self.gen,
+                                    device=self.device)[self._sl, self._rl]
+            if mesh.n_spatial > 1:
+                group = mesh.sp_group
+                if cfg.k_buckets:
+                    route = group_route(cfg.k_buckets, group, mesh.n_spatial, mesh.sp_index)
+        return multiscene_loss_and_grads(self.model, cfg, stage, self.occ_grids, o, d,
                                          target_rgb, target_inst, self.gen, jitter,
-                                         self._stage)
+                                         self._stage, group, route)
 
     def train_step(self, stage: str, o, d, target_rgb, target_inst, jitter=None) -> dict:
         """One fleet step, updating the parameters and Adam state in place;
-        the metrics are the means over scenes (tensors, no host sync)."""
+        the metrics are the means over the fleet's scenes (tensors, no host
+        sync)."""
         losses, grads = self.loss_and_grads(stage, o, d, target_rgb, target_inst, jitter)
         with self._stage("adam"):
             adam_update(self.model, grads, self.opt_state, stage, self.cfg.lr)
-        return {k: v.mean() for k, v in losses.items()}
+        if not self._split:
+            return {k: v.mean() for k, v in losses.items()}
+        keys = list(losses)
+        sums = all_reduce_sum([torch.stack([losses[k].sum() for k in keys])],
+                              group=self.mesh.data_group)[0]
+        return dict(zip(keys, sums / self.n_global))
 
     def train(self, steps: int, stage: str = "rgb", log_every: int = 100, log=print,
               steps_per_call: int | None = None) -> dict:
@@ -234,8 +312,8 @@ class MultiSceneFieldTrainer:
                 last = self.train_step(stage, *batch)
             if done % cfg.occ_update_every == 0 and stage != "instance":
                 self.update_occupancy()
-            if log_every and (done % log_every < spc or done >= steps):
-                rate = len(self.scenes) * cfg.n_rays * done / (time.time() - t0)
+            if log_every and (done % log_every < spc or done >= steps) and is_main():
+                rate = self.n_global * cfg.n_rays * done / (time.time() - t0)
                 log(f"[ms-{stage}] step {done}: " + " ".join(
                     f"{k2}={float(v):.4f}" for k2, v in last.items())
                     + f" ({rate:.0f} rays/s aggregate)")
@@ -267,11 +345,13 @@ class MultiSceneFieldTrainer:
             else:
                 m = max(1, int(g ** 3 * cfg.occ_subsample))
                 if cells is None:
-                    cells = torch.randint(0, g ** 3, (b, m), generator=self.gen, device=dev)
+                    cells = torch.randint(0, g ** 3, (self.n_global, m), generator=self.gen,
+                                          device=dev)[self._sl]
                 cells = torch.as_tensor(cells, device=dev).long()
                 coords = torch.stack([cells // (g * g), (cells // g) % g, cells % g], dim=-1)
             if jitter is None:
-                jitter = torch.rand(coords.shape, generator=self.gen, device=dev)
+                jitter = torch.rand((self.n_global, *coords.shape[1:]), generator=self.gen,
+                                    device=dev)[self._sl]
             xyz = (coords.to(torch.float32) + torch.as_tensor(jitter, device=dev)) / g
             sig = self.sigma(xyz)  # (B, M)
             flat = self.occ_grids.reshape(b, g ** 3) * 0.95
@@ -297,23 +377,27 @@ class MultiSceneFieldTrainer:
         occupancy grids) through ``train/checkpoints.py``; a restore is
         bit-exact. ``background``: the state is copied on the card now and
         written from a thread while training goes on; a later save, restore
-        or ``wait_for_save`` joins it first (and raises what it raised)."""
+        or ``wait_for_save`` joins it first (and raises what it raised).
+        A split fleet is gathered to rank 0 at call time (every rank calls
+        ``save``), and rank 0 writes the one-card layout."""
         from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager
 
         self.wait_for_save()
         opt = self.opt_state
-        snap = {"params": {k: v.detach().clone() for k, v in self.model.state_dict().items()},
+        snap = {"params": {k: self._gather(v) for k, v in self.model.state_dict().items()},
                 "opt_state": {"count": opt["count"],
-                              "mu": {k: v.clone() for k, v in opt["mu"].items()},
-                              "nu": {k: v.clone() for k, v in opt["nu"].items()}},
-                "occ_grids": self.occ_grids.clone()}
-        config = {"n_scenes": len(self.scenes)}
+                              "mu": {k: self._gather(v) for k, v in opt["mu"].items()},
+                              "nu": {k: self._gather(v) for k, v in opt["nu"].items()}},
+                "occ_grids": self._gather(self.occ_grids)}
+        config = {"n_scenes": self.n_global}
 
         def write():
             host = _to_cpu(snap)
             CheckpointManager(path, keep=2).save(step, host, config=config,
                                                  metrics=metrics or {})
 
+        if not is_main():
+            return
         if not background:
             write()
             return
@@ -338,20 +422,41 @@ class MultiSceneFieldTrainer:
             raise RuntimeError("the background checkpoint save failed") from err
 
     @torch.no_grad()
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of the whole fleet's ``t`` from the ranks' blocks (this
+        rank's alone on one card)."""
+        t = t.detach()
+        if not self._split:
+            return t.clone()
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(t) for _ in range(self.mesh.data_size)]
+        dist.all_gather(parts, t.contiguous(), group=self.mesh.data_group)
+        return torch.cat(parts)
+
+    @torch.no_grad()
     def restore(self, path: str) -> dict:
         """Load the latest checkpoint under ``path`` into this fleet (the
-        same scenes' shapes); returns its meta."""
+        same scenes' shapes; a split fleet's rank takes its block of the
+        whole fleet's); returns its meta."""
         from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager
 
         self.wait_for_save()
-        state, meta = CheckpointManager(path).restore(self._state(), map_location="cpu")
+        barrier()  # rank 0's save is on disk
+        template = self._state()
+        if self._split:
+            template = {"params": {k: v.new_empty((self.n_global, *v.shape[1:]))
+                                   for k, v in template["params"].items()},
+                        "opt_state": None, "occ_grids": None}
+        state, meta = CheckpointManager(path).restore(template, map_location="cpu")
+        own = lambda t: t[self._sl] if self._split else t  # noqa: E731
         for k, p in self.model.state_dict().items():
-            p.copy_(state["params"][k])
+            p.copy_(own(state["params"][k]))
         self.opt_state["count"] = int(state["opt_state"]["count"])
         for moment in ("mu", "nu"):
             for k, v in self.opt_state[moment].items():
-                v.copy_(state["opt_state"][moment][k])
-        self.occ_grids = state["occ_grids"].to(self.device)
+                v.copy_(own(state["opt_state"][moment][k]))
+        self.occ_grids = own(state["occ_grids"]).to(self.device)
         return meta
 
     # -- measurement on the card -----------------------------------------------
@@ -373,8 +478,9 @@ class MultiSceneFieldTrainer:
         self.train(steps, stage=stage, log_every=0, steps_per_call=spc)
         torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
-        b = len(self.scenes)
-        return {"B": b, "n_rays": self.cfg.n_rays, "steps": steps,
+        b = self.n_global
+        return {"B": b, "ranks": self.mesh.world if self._split else 1,
+                "n_rays": self.cfg.n_rays, "steps": steps,
                 "aggregate_rays_per_s": b * self.cfg.n_rays * steps / dt,
                 "step_ms": dt / steps * 1e3,
                 "peak_mem_bytes": int(torch.cuda.max_memory_allocated(self.device)),

@@ -157,34 +157,67 @@ def init_ngp_params(model: torch.nn.Module, seed: int) -> None:
         p.copy_(val)
 
 
-def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> dict:
-    """The JAX step's losses: ``rgb`` (MSE, trained unless the stage is
-    "instance"), ``bg_acc`` (optional), ``instance`` (log-softmax CE, targets
-    clipped at 0, foreground weight, ``target >= 0`` valid, sum-normalised;
-    trained unless the stage is "rgb"), ``psnr``, and their ``total``. With
-    a leading scene axis (a fleet's ``(B, R)`` rays) each is ``(B,)``, one
-    per scene."""
-    losses = {}
-    rgb_loss = torch.mean((out.rgb - target_rgb) ** 2, dim=(-2, -1))
-    losses["rgb"] = rgb_loss
-    total = rgb_loss if stage != "instance" else 0.0
-    if stage != "instance" and cfg.bg_acc_weight > 0:
-        is_bg = target_inst == 0
-        bg = torch.sum(torch.where(is_bg, out.acc ** 2, 0.0), dim=-1)
-        bg = bg / torch.clamp(is_bg.sum(dim=-1), min=1)
-        losses["bg_acc"] = bg
-        total = total + cfg.bg_acc_weight * bg
+def partial_sums(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> torch.Tensor:
+    """The JAX step's ``_losses`` of these rays, stacked on the last axis
+    (``(..., 6)``, one row per scene with a leading scene axis): the squared
+    error and its element count, the weighted instance CE (log-softmax,
+    targets clipped at 0, foreground weight, ``target >= 0`` valid) and its
+    weight, the background ``acc^2`` and its ray count."""
+    se = ((out.rgb - target_rgb) ** 2).sum(dim=(-2, -1))
+    zero = torch.zeros_like(se)
+    cnt = torch.full_like(se, float(target_rgb.shape[-2] * target_rgb.shape[-1]))
+    ce_w = w_sum = bg_sum = bg_cnt = zero
     if stage != "rgb":
         valid = target_inst >= 0
         logp = torch.log_softmax(out.instance_logits, dim=-1)
         ce = -torch.gather(logp, -1, torch.clamp(target_inst, min=0)[..., None].long())[..., 0]
         w = torch.where(target_inst > 0, cfg.instance_fg_weight, 1.0)
         w = torch.where(valid, w, 0.0)
-        inst_loss = torch.sum(ce * w, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1)
-        losses["instance"] = inst_loss
-        total = total + inst_loss
-    losses["psnr"] = -10.0 * torch.log10(torch.clamp(rgb_loss, min=1e-8))
-    losses["total"] = total
+        ce_w, w_sum = (ce * w).sum(dim=-1), w.sum(dim=-1)
+    if stage != "instance" and cfg.bg_acc_weight > 0:
+        is_bg = target_inst == 0
+        bg_sum = torch.where(is_bg, out.acc ** 2, 0.0).sum(dim=-1)
+        bg_cnt = is_bg.sum(dim=-1).to(se.dtype)
+    return torch.stack([se, cnt, ce_w, w_sum, bg_sum, bg_cnt], dim=-1)
+
+
+def sums_to_losses(local: torch.Tensor, total: torch.Tensor, stage: str, cfg: NGPConfig):
+    """(loss, metrics) from ``partial_sums``: the loss is the partial sums
+    ``local`` over the normalisers of ``total`` (in one process ``local``
+    itself; over ranks their sums, without gradient, so that the ranks'
+    gradients sum to the global loss's); the metrics ``rgb`` (MSE, trained
+    unless the stage is "instance"), ``instance`` (trained unless the stage
+    is "rgb"), ``bg_acc`` (optional) and their ``total`` are those of
+    ``total``."""
+    lo, tot = local.unbind(-1), total.unbind(-1)
+    se, cnt, ce_w, w_sum, bg_sum, bg_cnt = tot
+    zero = torch.zeros_like(se)
+    rgb = se / cnt
+    loss = lo[0] / cnt if stage != "instance" else zero
+    metrics = {"rgb": rgb}
+    mtotal = rgb if stage != "instance" else zero
+    if stage != "rgb":
+        w = torch.clamp(w_sum, min=1)
+        metrics["instance"] = ce_w / w
+        loss = loss + lo[2] / w
+        mtotal = mtotal + ce_w / w
+    if stage != "instance" and cfg.bg_acc_weight > 0:
+        c = torch.clamp(bg_cnt, min=1)
+        metrics["bg_acc"] = bg_sum / c
+        loss = loss + cfg.bg_acc_weight * lo[4] / c
+        mtotal = mtotal + cfg.bg_acc_weight * bg_sum / c
+    metrics["total"] = mtotal
+    return loss, metrics
+
+
+def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> dict:
+    """The JAX step's losses of one process (``sums_to_losses``), ``psnr``,
+    and ``total`` carrying the gradient. With a leading scene axis (a
+    fleet's ``(B, R)`` rays) each is ``(B,)``, one per scene."""
+    local = partial_sums(out, target_rgb, target_inst, stage, cfg)
+    loss, losses = sums_to_losses(local, local.detach(), stage, cfg)
+    losses["psnr"] = -10.0 * torch.log10(torch.clamp(losses["rgb"], min=1e-8))
+    losses["total"] = loss
     return losses
 
 

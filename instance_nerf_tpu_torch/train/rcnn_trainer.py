@@ -57,6 +57,7 @@ from instance_nerf_tpu_torch.train.checkpoints import (
     load_params,
     load_params_into,
 )
+from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
 from instance_nerf_tpu_torch.train.loop import device_batch, device_indices, train_epochs
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
 from instance_nerf_tpu_torch.train.train_utils import partition_optimizer
@@ -178,7 +179,7 @@ def init_rcnn_params(model: NeRF_RCNN, seed: int) -> None:
 
 def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid, gt_boxes,
                 gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=no_stage,
-                precomputed_feats: bool = False):
+                precomputed_feats: bool = False, shard=None):
     """One RoI-head forward and loss (the JAX package's ``make_rcnn_step_fn``
     body): sample the rois (``uniforms`` (N, 2, P + K) per scene, else drawn
     from ``generator``), pack the positives first (stably) into
@@ -186,14 +187,24 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
     loss a mean over scenes). Returns (total, metrics with the train-time
     classification accuracy over the sampled rois and the positives). With
     ``precomputed_feats`` ``grids`` is the FPN pyramid, a list of levels,
-    and the backbone does not run."""
+    and the backbone does not run.
+
+    ``shard`` (``parallel/mesh.py:Shard``): the batch is a data-parallel
+    step's rows; the draws are its rows of the global batch's, the sampled
+    and positive counts are summed over the ranks and the mask loss is over
+    the global batch's scenes, so that every loss and metric sums over the
+    ranks to the global batch's (``num_pos`` is this rank's count)."""
     del grid_sizes  # the rois are in grid coordinates already
     with stage("loss"):
         s = select_training_samples(
             rois, roi_valid, gt_boxes, gt_labels, gt_mask,
             batch_size_per_image=cfg.batch_size_per_image,
             positive_fraction=cfg.positive_fraction, fg_iou_thresh=cfg.fg_iou_thresh,
-            bg_iou_thresh=cfg.bg_iou_thresh, uniforms=uniforms, generator=generator)
+            bg_iou_thresh=cfg.bg_iou_thresh, uniforms=uniforms, generator=generator,
+            shard=shard)
+        n_valid, n_pos = s.valid.sum(), s.pos.sum()
+        if shard is not None:
+            n_valid, n_pos = shard.sum(torch.stack([n_valid, n_pos]))
         order, mpos = _pack(s.pos, mask_slots)
         mrois = torch.gather(s.rois, 1, order[..., None].expand(*order.shape, 6))
         mlab, mmidx = (torch.gather(t, 1, order) for t in (s.labels, s.matched_gt_idx))
@@ -210,14 +221,18 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
         logits, deltas = model.box_forward(feats, s.rois)
         mlogits = model.mask_forward(feats, mrois)
     with stage("loss"):
-        cls_loss, box_loss = fastrcnn_loss(logits, deltas, s.labels, s.reg_targets, s.valid)
+        cls_loss, box_loss = fastrcnn_loss(logits, deltas, s.labels, s.reg_targets, s.valid,
+                                           n_valid)
+        n = gt_vmasks.shape[0]
         mloss = torch.stack([
             maskrcnn_loss(mlogits[i], mrois[i], gt_vmasks[i], mlab[i], mmidx[i], mpos[i])
-            for i in range(gt_vmasks.shape[0])]).mean()
+            for i in range(n)]).mean()
+        if shard is not None and n != shard.n:
+            mloss = mloss * (n / shard.n)
         total = cls_loss + box_loss + mloss
         correct = logits.argmax(dim=-1) == s.labels
-        acc = (correct & s.valid).sum() / s.valid.sum().clamp_min(1)
-        fg_acc = (correct & s.pos).sum() / s.pos.sum().clamp_min(1)
+        acc = (correct & s.valid).sum() / n_valid.clamp_min(1)
+        fg_acc = (correct & s.pos).sum() / n_pos.clamp_min(1)
     return total, {"loss_classifier": cls_loss, "loss_box_reg": box_loss, "loss_mask": mloss,
                    "num_pos": s.pos.sum(), "cls_acc": acc, "fg_cls_acc": fg_acc}
 
@@ -225,15 +240,15 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
 def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage,
                       precomputed_feats: bool = False):
     """``step(state, grids, grid_sizes, rois, roi_valid, gt_boxes, gt_labels,
-    gt_mask, gt_vmasks, uniforms=None, generator=None) -> (state,
-    metrics)``: ``rcnn_losses``, backward, the clipped AdamW."""
+    gt_mask, gt_vmasks, uniforms=None, generator=None, shard=None) ->
+    (state, metrics)``: ``rcnn_losses``, backward, the clipped AdamW."""
 
-    def step(state: TrainState, *batch, uniforms=None, generator=None):
+    def step(state: TrainState, *batch, uniforms=None, generator=None, shard=None):
         model.zero_grad(set_to_none=True)
         total, metrics = rcnn_losses(model, cfg, mask_slots, *batch, uniforms=uniforms,
                                      generator=generator, stage=stage,
-                                     precomputed_feats=precomputed_feats)
-        return apply_step(state, total, metrics, stage)
+                                     precomputed_feats=precomputed_feats, shard=shard)
+        return apply_step(state, total, metrics, stage, shard)
 
     return step
 
@@ -253,9 +268,16 @@ def graft_backbone(model: NeRF_RCNN, src: str) -> None:
 
 
 class RCNNTrainer:
-    def __init__(self, cfg: RCNNConfig | None = None, device="cuda"):
+    def __init__(self, cfg: RCNNConfig | None = None, device="cuda", mesh=None):
+        """``mesh`` (or ``torchrun``'s, built as the FCOS trainer's): one rank
+        of a data-parallel step, each rank its rows of every global batch
+        (with ``device_data`` gathered from the whole split held on each
+        card), the sampler's draws its rows of the global batch's."""
         self.cfg = cfg = cfg or RCNNConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -377,6 +399,8 @@ class RCNNTrainer:
         ds = SegmentationDataset("train", cfg.dataset_root, split, cache=cfg.cache_scenes)
         val = SegmentationDataset("val", cfg.dataset_root, split, cache=cfg.cache_scenes)
         self.init_state(total_steps=cfg.num_epochs * max(1, len(ds) // cfg.batch_size))
+        shard = batch_shard(self.mesh, cfg.batch_size)
+        own = (lambda idx: idx) if shard is None else shard.take
         loop_kw = {}
         if cfg.device_data:
             store = self.device_store(ds)
@@ -384,16 +408,17 @@ class RCNNTrainer:
             loop_kw = dict(epoch_indices=device_indices("draw"))
 
             def load(idx):
-                return self.store_batch(store, idx)
+                return self.store_batch(store, own(idx))
         else:
             step_fn = self.train_step_fn()
 
             def load(idx):
-                return device_batch(ds.batch(idx, (cfg.resolution,) * 3, max_gt=cfg.max_gt,
-                                             max_rois=cfg.max_rois), self.device, BATCH_FIELDS)
+                return device_batch(ds.batch(own(idx), (cfg.resolution,) * 3,
+                                             max_gt=cfg.max_gt, max_rois=cfg.max_rois),
+                                    self.device, BATCH_FIELDS)
 
         def step(batch):
-            self.state, metrics = step_fn(self.state, *batch, generator=self.gen)
+            self.state, metrics = step_fn(self.state, *batch, generator=self.gen, shard=shard)
             return metrics
 
         def save(gstep, metrics):
@@ -432,10 +457,13 @@ class RCNNTrainer:
         if self.state is None:
             self.init_state()
         args = self._card_train_batch(batch, shape)
+        shard = batch_shard(self.mesh, batch)
+        if shard is not None:
+            args = tuple(shard.take(a) for a in args)
         step_fn = self.train_step_fn()
 
         def run():
-            self.state, metrics = step_fn(self.state, *args, generator=self.gen)
+            self.state, metrics = step_fn(self.state, *args, generator=self.gen, shard=shard)
             return metrics
 
         return run

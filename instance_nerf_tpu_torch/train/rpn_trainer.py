@@ -43,6 +43,7 @@ from instance_nerf_tpu_torch.parallel.train_step import (
     make_rpn_train_step,
 )
 from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager, load_params_into
+from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
 from instance_nerf_tpu_torch.train.loop import device_batch, synthetic_batch, train_epochs
 from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
@@ -189,9 +190,15 @@ def eval_proposals(dataset: RPNDataset, predict, export=None, filter_mode="none"
 
 
 class RPNTrainer:
-    def __init__(self, cfg: RPNConfig | None = None, device="cuda"):
+    def __init__(self, cfg: RPNConfig | None = None, device="cuda", mesh=None):
+        """``mesh`` (or ``torchrun``'s, built as the FCOS trainer's): one rank
+        of a data-parallel step, each rank its rows of every global batch,
+        the sampler's draws its rows of the global batch's."""
         self.cfg = cfg = cfg or RPNConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
         if self.dtype is None and self.device.type == "cuda":
             # f32 means f32: cuDNN convs and matmuls default to TF32 on the card
@@ -272,13 +279,16 @@ class RPNTrainer:
         step_fn = self.train_step_fn()
         pad_shape = (cfg.resolution,) * 3
         box_dim = 7 if cfg.rotated_bbox else 6
+        shard = batch_shard(self.mesh, cfg.batch_size)
+        rows = None if shard is None else (shard.lo, shard.hi)
 
         def load(idx):
-            return ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim, augment=True)
+            return ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim, augment=True,
+                            rows=rows)
 
         def step(batch):
             self.state, losses = step_fn(self.state, *device_batch(batch, self.device),
-                                         generator=self.gen)
+                                         generator=self.gen, shard=shard)
             return losses
 
         def save(gstep, metrics):
@@ -308,10 +318,13 @@ class RPNTrainer:
         if self.state is None:
             self.init_state()
         args = self._card_train_batch(batch, shape)
+        shard = batch_shard(self.mesh, batch)
+        if shard is not None:
+            args = tuple(shard.take(a) for a in args)
         step_fn = self.train_step_fn()
 
         def run():
-            self.state, metrics = step_fn(self.state, *args, generator=self.gen)
+            self.state, metrics = step_fn(self.state, *args, generator=self.gen, shard=shard)
             return metrics
 
         return run

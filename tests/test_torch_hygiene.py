@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of ``instance_nerf_tpu_torch``
-and not ``chip_smoke.py`` may import JAX, flax or the JAX package; entry
+and not ``chip_smoke.py`` (nor ``tests/dist_worker.py``, the multi-process
+tests' ranks) may import JAX, flax or the JAX package; entry
 points run on the card unless asked for the CPU; the kernel wrappers take a
 CPU tensor to the plain version without counting a launch."""
 import ast
@@ -30,7 +31,9 @@ def _modules():
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the multi-process tests' ranks run tests/dist_worker.py: it too imports
+    # no JAX
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "dist_worker.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
@@ -60,7 +63,9 @@ def test_port_has_every_slice_module():
               # slice 6: the field's CLIs, fleets, mask projection and match_seg
               "cli.run_instance_field", "cli.run_fleet", "train.multiscene",
               "parallel.ngp_train_step", "eval.instance_field_metrics", "data.png",
-              "masks2d.project_masks", "masks2d.match_seg", "masks2d.coco_nyu40"):
+              "masks2d.project_masks", "masks2d.match_seg", "masks2d.coco_nyu40",
+              # slice 7a: training over several cards
+              "parallel.mesh", "data.prefetch"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
