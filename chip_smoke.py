@@ -162,11 +162,37 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    FCOS AABB, the rotated RPN and the RCNN (f64 gradients 1e-5 of their
    max, f32 losses 1e-5; f32 gradients reported), the ray-sharded field
    step (B3 once a rank) and a B = 4 fleet step (f32, 1e-5).
+13g. ``pipeline`` (main path of slice 7c): the five-stage pipeline
+   through ``python -m instance_nerf_tpu_torch.pipeline``'s ``main`` at the
+   JAX example's defaults (a 10-view 64^2 scene, 2 held out; the brick
+   field's 1500 rgb steps, the RGBσ grid at 64^3; 200 RCNN steps, VGG-AF, 5
+   classes; inference with B1 over the per-class candidates of 16 rois;
+   projection and match_seg; 500 instance steps, the held-out views'
+   mIoU / PQ): every stage's keys finite, the files in the example's
+   layout, B1 launched, its detections equal to a re-run of the
+   post-processing with the plain sweep; the per-stage walls and peak
+   bytes.
+13h. ``slice_legacy``: the legacy classification path at full width: the
+   rotated RPN's ``predict_scene`` at 224x224x160 (B2, K = 4000) gives the
+   FPN levels (256 channels) and up to 1000 proposals, mapped to levels by
+   FPN eq. (1); ``LegacyProposalScorer`` (the legacy pool, rotated,
+   pooling, enlarge 0.2, ``max_grid`` 32, then the classifier 256, 256,
+   512, 2 classes, bf16) at output 1^3 and 5^3: median ms of 10 warmed
+   runs, peak bytes, the chunk size; a small f32 case card against CPU
+   (pooled features and scores 1e-5).
+13i. ``utils``: the FCOS AABB train step at batch 4 and 160^3 (bf16):
+   FLOPs a step, achieved TFLOP/s and MFU against the H100's bf16 peak
+   (``benchmark_train_step``), ``memory_stats`` of one step within 5% of
+   the benchmark's peak; ``chained_latency_ms`` of the RCNN's
+   ``predict_scene`` at 200x200x132 beside ``benchmark``'s median; a
+   ``torch.profiler`` trace written with its kernels.
 14. ``kernels``: one line ``{"kernels": [...]}`` with every kernel's
    launches on its path, error, times (``ms``, ``device_ms``) and bound;
    B1's and B2's entries also hold the FCOS path's (``launches_fcos``,
    ``k_fcos``, ``fcos_ms``, ``fcos_device_ms``, ``fcos_bound_ms``, ...)
-   and their launches in the train loops' evals (``launches_train_loop``)
+   and their launches in the train loops' evals (``launches_train_loop``),
+   B1's in the pipeline's stage 3 (``launches_pipeline``, ``k_pipeline``),
+   B2's on the legacy path (``launches_legacy``)
    and on the Swin and ResNet paths (``launches_backbones``), and in rank
    0's evals under the launcher (``launches_dist_train_loop``);
    B3's its launches on the field CLI's and the fleet's paths
@@ -205,6 +231,10 @@ FIELD_SCENE = dict(n_views=16, hw=(128, 128), n_blobs=3)
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the monotonic clock at its end
+    (``clock_s``), so that consecutive lines give each phase's seconds."""
+    if "phase" in obj:
+        obj = {**obj, "clock_s": time.monotonic()}
     print(json.dumps(obj), flush=True)
 
 
@@ -339,16 +369,21 @@ def phase_build():
 
 def check_sweep(results, name, kernel, plain, data, valid, thr):
     """One NMS kernel case: the kernel's keep mask must equal the plain
-    sweep's bit for bit. Returns the kernel's keep."""
+    sweep's bit for bit; the plain sweep's one run is timed (``plain_ms``,
+    CUDA events). Returns the kernel's keep."""
     import torch
 
     got = kernel(data, valid, thr)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain(data, valid, thr)
-    torch.cuda.synchronize()
+    end.record()
+    end.synchronize()
     mismatches = int((got != want).sum())
     results.append({"case": name, "shape": list(valid.shape), "thr": thr,
                     "kept": int(got.sum()), "valid": int(valid.sum()),
-                    "mismatches": mismatches})
+                    "mismatches": mismatches, "plain_ms": start.elapsed_time(end)})
     if mismatches:
         raise AssertionError(f"{kernel.__name__} kernel disagrees with the plain sweep: "
                              f"{results[-1]}")
@@ -447,8 +482,11 @@ def phase_kernel_nms():
         b, v, keep = inputs[name]
         timing[name] = nms_times({}, lambda: nms_boxes(b, v, 0.15),
                                  reps=200 if name == "k200" else 20, dev_reps=20)
-        timing[name]["plain_ms"] = cuda_ms(lambda: nms_boxes_plain(b, v, 0.15), reps=3,
-                                           warmup=1)
+        # at K = 10400 the check's one run (seconds); K = 200 warmed, since the
+        # check ran the process's first plain sweep there
+        timing[name]["plain_ms"] = (
+            next(r["plain_ms"] for r in results if r["case"] == name) if name == "k10400"
+            else cuda_ms(lambda: nms_boxes_plain(b, v, 0.15), reps=3, warmup=1))
         timing[name]["bound_ms"] = nms_bound_ms(keep, v)[0]
     emit({"phase": "kernel_nms", "cases": results, "limit": limit, "timing": timing})
     return timing
@@ -709,8 +747,7 @@ def phase_kernel_nms_iou():
     if not 0 < int(keep.sum()) < int(v.sum()):
         raise AssertionError("K = 4000 case suppresses nothing: not a test of the sweep")
     timing = {"k4000": nms_times({}, lambda: nms_sweep(iou, v, 0.7), reps=20, dev_reps=20)}
-    timing["k4000"]["plain_ms"] = cuda_ms(lambda: nms_sweep_plain(iou, v, 0.7), reps=3,
-                                          warmup=1)
+    timing["k4000"]["plain_ms"] = next(r["plain_ms"] for r in results if r["case"] == "k4000")
     timing["k4000"]["bound_ms"] = sweep_bound_ms(keep, v)[0]
     emit({"phase": "kernel_nms_iou", "cases": results, "limit": limit, "timing": timing})
     return timing
@@ -970,9 +1007,15 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     info, logits, reg, ctr, feats, sizes, pm = trainer.head_outputs(grid)
     captured = []
 
-    def plain_sweep(x, svalid, thr):  # records the scene's NMS input
-        captured.append((x, svalid))
-        return plain(x, svalid, thr)
+    def plain_sweep(x, svalid, thr):  # records the scene's NMS input, output and ms
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        keep = plain(x, svalid, thr)
+        end.record()
+        end.synchronize()
+        captured.append((x, svalid, keep, start.elapsed_time(end)))
+        return keep
 
     props_k = trainer.postprocess(info, logits, reg, ctr, sizes, pm)
     props_p = trainer.postprocess(info, logits, reg, ctr, sizes, pm, nms_sweep=plain_sweep)
@@ -986,7 +1029,7 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     if not same_as_predict:
         raise AssertionError(f"FCOS {mode}: the re-run post-processing differs from "
                              "predict_scene's proposals")
-    x, svalid = captured[0]
+    x, svalid, keep_plain, plain_ms = captured[0]
     r = int(logits.shape[1])
     k = len(cfg.fpn_strides) * min(cfg.pre_nms_top_n, r)  # candidates into the NMS
     n_valid = sum(min(cfg.pre_nms_top_n, int(f.shape[1] * f.shape[2] * f.shape[3]))
@@ -1001,16 +1044,16 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
                              f"{int(svalid.sum())} valid; expected K = {k}, {n_valid} valid")
     del feats, logits, reg, ctr, props_k, props_p
 
-    # the kernel on the scene's own NMS input, beside its plain sweep
+    # the kernel on the scene's own NMS input, beside its plain sweep (the
+    # re-run's, timed there: seconds at K = 10,000)
     keep = kernel(x, svalid, cfg.nms_thresh)
-    if not torch.equal(keep, plain(x, svalid, cfg.nms_thresh)):
+    if not torch.equal(keep, keep_plain):
         raise AssertionError(f"FCOS {mode}: kernel disagrees on the scene's NMS input")
     timing = {}
     if time_nms:
         timing = nms_times({}, lambda: kernel(x, svalid, cfg.nms_thresh), reps=20,
                            dev_reps=20)
-        timing["plain_ms"] = cuda_ms(lambda: plain(x, svalid, cfg.nms_thresh), reps=1,
-                                     warmup=0)
+        timing["plain_ms"] = plain_ms
         bound = (sweep_bound_ms if rotated else nms_bound_ms)(keep, svalid)
         timing["bound_ms"], timing["bound_by"] = bound
     nms = {"k": k, "valid": n_valid, "swept": swept, "kept": int(keep.sum()),
@@ -2390,7 +2433,11 @@ def phase_slice_train(smi):
                 "top_kernels": prof["top_kernels"], "losses_first": losses[0],
                 "losses_step20": losses[20], "all_finite": finite,
                 "kernel_launches": launches, "seconds": time.perf_counter() - t0,
-                "device": bench["device"], "nvidia_smi": smi}
+                "device": bench["device"], "nvidia_smi": smi,
+                # FCOS and RCNN: the JAX trainers' model keys (slice 7c)
+                **{k: bench[k] for k in ("flops_per_step", "tflops_per_step",
+                                         "achieved_tflops", "mfu", "peak_hbm_gib")
+                   if k in bench}}
         emit(line)
         out[name] = line
         if not finite:
@@ -3106,6 +3153,292 @@ def phase_small_reference_dist(work):
     return report
 
 
+# slice 7c: the composed pipeline at the JAX example's defaults
+PIPELINE_ARGV = []
+# the legacy path: the rotated RPN's benchmark shape, the JAX default output
+# and the largest of the legacy configs
+LEGACY_OUTPUTS = ((1, 1, 1), (5, 5, 5))
+LEGACY_REF = dict(levels=((40, 40, 30), (20, 20, 15)), channels=32, rois=24, max_grid=16)
+UTILS_SHAPE = (160, 160, 160)
+
+
+def release() -> None:
+    """Free what earlier phases left for the cyclic collector, so that a
+    phase's peak bytes count its own work (and what it keeps) alone."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(work, smi):
+    """The five-stage pipeline (main path of slice 7c) through its entry,
+    ``pipeline.main``, at the JAX example's defaults: every stage lands its
+    keys, finite; the files are in the example's layout; B1 launches in
+    stage 3 and its detections equal a re-run of the post-processing with
+    the plain sweep."""
+    import torch
+
+    from instance_nerf_tpu_torch import pipeline
+    from instance_nerf_tpu_torch.kernels.nms_cuda import nms_boxes_plain
+
+    release()
+    wd = os.path.join(work, "pipeline")
+    zero_launches()
+    t0 = time.perf_counter()
+    pipe = pipeline.main(["--workdir", wd, *PIPELINE_ARGV])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["nms_boxes"] < 1:
+        raise AssertionError(f"the pipeline's stage 3 did not launch B1: {launches}")
+    s = pipe.summary
+    keys = ("psnr", "rcnn_loss", "detections", "matched_views", "instance_ce", "pq", "miou",
+            "holdout_render_psnr", *(f"stage{i}_wall_s" for i in range(1, 6)),
+            *(f"stage{i}_peak_bytes" for i in range(1, 6)))
+    bad = [k for k in keys if not np.isfinite(s[k])]
+    if bad:
+        raise AssertionError(f"pipeline summary keys not finite: {bad}")
+    if json.load(open(os.path.join(wd, "summary.json"))) != json.loads(json.dumps(s)):
+        raise AssertionError("summary.json differs from the run's summary")
+    a = pipe.args
+    n_train = a.views - a.holdout
+    views = [f"r_{v:03d}" for v in range(n_train)]
+    layout = {
+        "top": sorted(os.listdir(wd)),
+        "scene": sorted(os.listdir(os.path.join(wd, "scene"))),
+        "images": sorted(os.listdir(os.path.join(wd, "scene", "images"))),
+        "masks_matched": sorted(os.listdir(os.path.join(wd, "masks_matched")))}
+    want = {"top": ["masks.npz", "masks_matched", "projections", "rgbsigma.npy", "scene",
+                    "summary.json"],
+            "scene": ["boxes.npy", "images", "masks", "transforms.json"],
+            "images": [v + ".png" for v in views],
+            "masks_matched": [v + ".npy" for v in views]}
+    if layout != want:
+        raise AssertionError(f"pipeline files {layout}, expected {want}")
+    with np.load(os.path.join(wd, "masks.npz")) as z:
+        if sorted(z.files) != ["boxes", "labels", "masks", "scores"]:
+            raise AssertionError(f"masks.npz holds {z.files}")
+        if z["masks"].shape != (s["detections"], a.grid, a.grid, a.grid):
+            raise AssertionError(f"masks {z['masks'].shape}")
+    if np.load(os.path.join(wd, "rgbsigma.npy")).shape != (a.grid,) * 3 + (4,):
+        raise AssertionError("rgbsigma.npy shape")
+
+    # stage 3 re-run with the plain sweep: the same detections
+    captured = []
+
+    def plain_sweep(sboxes, svalid, thr):
+        captured.append(int(sboxes.shape[0]))
+        return nms_boxes_plain(sboxes, svalid, thr)
+
+    det_p = pipe.postprocess(nms_sweep=plain_sweep)
+    for f in det_p._fields:
+        if not torch.equal(getattr(det_p, f), getattr(pipe.det, f)):
+            raise AssertionError(f"pipeline stage 3: kernel vs plain NMS differ in {f}")
+    line = {"phase": "pipeline", "argv": PIPELINE_ARGV, "config": s["config"],
+            "seconds": seconds, "launches": launches, "nms_k": captured[0],
+            "plain_nms_identical": True,
+            "walls_s": {f"stage{i}": s[f"stage{i}_wall_s"] for i in range(1, 6)},
+            "peak_bytes": {f"stage{i}": s[f"stage{i}_peak_bytes"] for i in range(1, 6)},
+            "metrics": {k: s[k] for k in ("psnr", "rcnn_loss", "detections", "matched_views",
+                                          "instance_ce", "pq", "miou",
+                                          "holdout_render_psnr")},
+            "device": s["device"], "nvidia_smi": smi}
+    emit(line)
+    del pipe
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_slice_legacy(smi):
+    """The legacy two-stage classification path at full width: the rotated
+    RPN's ``predict_scene`` at its benchmark shape (B2, K = 4000) gives the
+    FPN levels (256 channels, bf16) and up to 1000 proposals; FPN eq. (1) on
+    their enclosing AABBs (``ops/poolers.py:map_levels``) picks each one's
+    level; ``LegacyProposalScorer`` (the legacy pool, rotated, pooling,
+    enlarge 0.2, ``max_grid`` 32, then the classifier 256, 256, 512, 2
+    classes in bf16) at output 1^3 and 5^3: ms (median of 10 warmed runs),
+    peak bytes, the chunk size; at 1^3 also with every roi's grid clamped
+    to ``max_grid`` (the lattice the chunks bound). Then a small f32 case,
+    card against the CPU: pooled features 1e-5 of their max, scores 1e-5."""
+    import torch
+
+    from instance_nerf_tpu_torch.models.legacy_classifier import LegacyProposalScorer
+    from instance_nerf_tpu_torch.ops.boxes import obb2hbb_3d
+    from instance_nerf_tpu_torch.ops.legacy_roi_pool import roi_chunk
+    from instance_nerf_tpu_torch.ops.poolers import map_levels
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
+    from instance_nerf_tpu_torch.train.timing import benchmark_ms
+    from instance_nerf_tpu_torch.utils.hbm import memory_stats
+
+    release()
+    cfg = RPNConfig(rotated_bbox=True, dtype="bfloat16", resolution=160, seed=0)
+    rpn = RPNTrainer(cfg, device="cuda")
+    rpn.init_state()
+    shape = (200, 200, 130)
+    grid = torch.from_numpy(
+        np.random.default_rng(0).uniform(0, 1, (*shape, 4)).astype(np.float32)).to("cuda")
+    zero_launches()
+    boxes, _, _, feats, obj = rpn.predict_scene(grid)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["nms_sweep"] != 1:
+        raise AssertionError(f"the RPN's NMS launched B2 {launches['nms_sweep']} times")
+    del obj, rpn, grid
+    boxes = boxes.float()
+    strides = tuple(cfg.fpn_strides)
+    k_min, k_max = int(np.log2(strides[0])), int(np.log2(strides[-1]))
+    level_ids = map_levels(obb2hbb_3d(boxes), k_min, k_max)
+    chunk = roi_chunk(32, feats[0].shape[-1])
+    runs = {}
+    for out_size in LEGACY_OUTPUTS:
+        scorer = LegacyProposalScorer(in_channels=256, num_classes=2, output_size=out_size,
+                                      dtype=torch.bfloat16, device="cuda")
+        run = lambda: scorer(feats, boxes, level_ids, strides)  # noqa: E731
+        scores, pooled = run()
+        if tuple(scores.shape) != (boxes.shape[0], 2) or tuple(pooled.shape) != (
+                boxes.shape[0], *out_size, 256):
+            raise AssertionError(f"legacy outputs {tuple(scores.shape)} {tuple(pooled.shape)}")
+        if not (torch.isfinite(scores.float()).all() and torch.isfinite(pooled).all()):
+            raise AssertionError("non-finite legacy outputs")
+        mem = memory_stats(run)
+        bench = benchmark_ms(run, "cuda", reps=10, warmup=2)
+        runs["x".join(map(str, out_size))] = {
+            "ms_median": bench["median_ms"], "ms_min": bench["min_ms"],
+            "peak_mem_bytes": bench["peak_mem_bytes"], "memory_stats": mem,
+            "pooled_abs_max": float(pooled.abs().max()),
+            "fg_share": float((scores.argmax(-1) == 1).float().mean())}
+        del scorer, scores, pooled
+        torch.cuda.empty_cache()
+    # the worst case the chunks bound: every roi's grid clamped to max_grid
+    # (the same centers and angles, extents of 32 strides of their level)
+    big = boxes.clone()
+    big[:, 3:6] = 32.0 * torch.tensor(strides, device="cuda")[level_ids.long()][:, None]
+    scorer = LegacyProposalScorer(in_channels=256, num_classes=2, dtype=torch.bfloat16,
+                                  device="cuda")
+    run = lambda: scorer(feats, big, level_ids, strides)  # noqa: E731
+    mem = memory_stats(run)
+    bench = benchmark_ms(run, "cuda", reps=3, warmup=1)
+    runs["1x1x1_max_grid"] = {"ms_median": bench["median_ms"], "ms_min": bench["min_ms"],
+                              "peak_mem_bytes": bench["peak_mem_bytes"], "memory_stats": mem}
+    del scorer, big
+    torch.cuda.empty_cache()
+
+    # the small f32 case: card against CPU, the same seeded weights and inputs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    c = LEGACY_REF["channels"]
+    levels = [rng.normal(size=(*s, c)).astype(np.float32) for s in LEGACY_REF["levels"]]
+    n = LEGACY_REF["rois"]
+    rois = np.concatenate([rng.uniform(4, 36, (n, 2)), rng.uniform(4, 26, (n, 1)),
+                           rng.uniform(3, 24, (n, 3)), rng.uniform(-3, 3, (n, 1))],
+                          1).astype(np.float32)
+    ids = rng.integers(0, 2, n).astype(np.int32)
+    ref = {}
+    for out_size in LEGACY_OUTPUTS:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            scorer = LegacyProposalScorer(in_channels=c, output_size=out_size,
+                                          max_grid=LEGACY_REF["max_grid"], device=dev)
+            res[dev] = [t.cpu() for t in scorer([torch.from_numpy(f).to(dev) for f in levels],
+                                                torch.from_numpy(rois).to(dev),
+                                                torch.from_numpy(ids).to(dev), (2, 4))]
+        (sc_g, po_g), (sc_c, po_c) = res["cuda"], res["cpu"]
+        err_pool = float((po_g - po_c).abs().max() / po_c.abs().max().clamp_min(1e-30))
+        err_score = float((sc_g - sc_c).abs().max())
+        ref["x".join(map(str, out_size))] = {"pooled_err_rel_max": err_pool,
+                                             "scores_abs_err": err_score}
+        if not (err_pool <= 1e-5 and err_score <= 1e-5):
+            raise AssertionError(f"legacy path card vs CPU at {out_size}: pooled "
+                                 f"{err_pool}, scores {err_score}")
+    line = {"phase": "slice_legacy", "grid": list(shape), "rpn_launches": launches,
+            "proposals": int(boxes.shape[0]),
+            "levels": torch.bincount(level_ids.long(), minlength=4).tolist(),
+            "feature_shapes": [list(f.shape) for f in feats], "max_grid": 32,
+            "chunk": chunk, "runs": runs, "small_reference": ref, "nvidia_smi": smi}
+    emit(line)
+    del feats, boxes
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_utils(work, smi):
+    """The FLOP / memory / profiling utilities on the card: ``count_flops``
+    and ``step_stats`` of the FCOS AABB train step at batch 4 and 160^3
+    (bf16) through ``benchmark_train_step`` (FLOPs a step, achieved TFLOP/s,
+    MFU against the H100's bf16 peak); ``memory_stats`` of one step within
+    5% of the benchmark's peak; ``chained_latency_ms`` of the RCNN's
+    ``predict_scene`` at its bench shape beside ``benchmark``'s median; a
+    ``trace`` written and non-empty."""
+    import torch
+
+    from instance_nerf_tpu_torch.train.rcnn_trainer import RCNNConfig, RCNNTrainer
+    from instance_nerf_tpu_torch.utils.hbm import H100_SXM_PEAK_BF16_FLOPS, memory_stats
+    from instance_nerf_tpu_torch.utils.profiling import (
+        TRACE_FILE,
+        chained_latency_ms,
+        dispatch_overhead_ms,
+        trace,
+    )
+
+    release()
+    tr = make_trainer("fcos", False, "cuda")
+    tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+    bench = tr.benchmark_train_step(reps=10, warmup=3, shape=UTILS_SHAPE, batch=4)
+    step = tr._card_train_step(4, UTILS_SHAPE)
+    mem = memory_stats(step)
+    rel = abs(mem["peak_hbm"] - bench["peak_mem_bytes"]) / bench["peak_mem_bytes"]
+    if rel > 0.05:
+        raise AssertionError(f"memory_stats peak {mem['peak_hbm']} vs the benchmark's "
+                             f"{bench['peak_mem_bytes']}")
+    if not (bench["flops_per_step"] > 0 and 0 < bench["mfu"] < 1):
+        raise AssertionError(f"FCOS step FLOPs {bench['flops_per_step']}, mfu {bench['mfu']}")
+    del tr, step
+    torch.cuda.empty_cache()
+
+    rcnn = RCNNTrainer(RCNNConfig(resolution=200, num_classes=11, dtype="bfloat16",
+                                  eval_rois=20, box_nms_thresh=0.15, detections_per_img=25,
+                                  seed=0), device="cuda")
+    rcnn.init_state()
+    shape = (200, 200, 132)
+    rbench = rcnn.benchmark(reps=10, shape=shape)
+    grid, rois = rcnn._card_inputs(shape)
+
+    def chained(c, grid, rois):
+        det, masks = rcnn.predict_scene(grid + c * 0, rois)
+        return c + (det.scores.float().sum() + masks[:1, :1, :1, :1].sum()) * 0 + 1
+
+    chain_ms = chained_latency_ms(chained, (grid, rois), reps=10, device="cuda")
+    overhead = dispatch_overhead_ms(device="cuda")
+    tdir = os.path.join(work, "trace")
+    with trace(tdir):
+        rcnn.predict_scene(grid, rois)
+        torch.cuda.synchronize()
+    tfile = os.path.join(tdir, TRACE_FILE)
+    with open(tfile) as f:
+        events = json.load(f)["traceEvents"]
+    n_cuda = sum(1 for e in events if e.get("cat") == "kernel")
+    if not events or not n_cuda:
+        raise AssertionError(f"trace {tfile}: {len(events)} events, {n_cuda} kernels")
+    line = {"phase": "utils", "fcos_shape": list(UTILS_SHAPE), "batch": 4, "dtype": "bfloat16",
+            "step_ms_median": bench["median_ms"], "flops_per_step": bench["flops_per_step"],
+            "tflops_per_step": bench["tflops_per_step"],
+            "achieved_tflops": bench["achieved_tflops"], "mfu": bench["mfu"],
+            "peak_flops": H100_SXM_PEAK_BF16_FLOPS, "peak_hbm_gib": bench["peak_hbm_gib"],
+            "benchmark_peak_bytes": bench["peak_mem_bytes"], "memory_stats": mem,
+            "memory_rel_diff": rel, "rcnn_predict_ms_median": rbench["median_ms"],
+            "rcnn_chained_ms": chain_ms, "dispatch_overhead_ms": overhead,
+            "trace_events": len(events), "trace_kernels": n_cuda,
+            "trace_bytes": os.path.getsize(tfile), "nvidia_smi": smi}
+    emit(line)
+    del rcnn, grid
+    torch.cuda.empty_cache()
+    return line
+
+
 def dist_child(argv):
     """A rank of a launched phase: ``--dist-child NAME OUT [ARGS]``."""
     name, *rest = argv
@@ -3192,6 +3525,9 @@ def main():
         phase_project_masks(work)
         dist = phase_slice_dist(work, smi)
         dist_ref = phase_small_reference_dist(work)
+        pipe = phase_pipeline(work, smi)
+        legacy = phase_slice_legacy(smi)
+        phase_utils(work, smi)
 
     main_scat = scat["main_all_levels"]
     emit({"kernels": [{
@@ -3211,6 +3547,7 @@ def main():
             "fcos_aabb_swin_s", "rcnn_resnet")},
         "launches_dist_train_loop": {k: dist["launches_dist_train_loop"][k] for k in (
             "fcos_aabb", "fcos_aabb_resume")},
+        "launches_pipeline": pipe["launches"]["nms_boxes"], "k_pipeline": pipe["nms_k"],
         **fcos_entry(fcos["aabb"]["nms"]),
     }, {
         "name": "nms_sweep", "route": "cuda",
@@ -3228,6 +3565,7 @@ def main():
         "launches_obb_rcnn_reference": launches_obb_rcnn["nms_sweep"],
         "launches_dist_train_loop": {
             "rpn_rotated": dist["launches_dist_train_loop"]["rpn_rotated"]},
+        "launches_legacy": legacy["rpn_launches"]["nms_sweep"],
         "random_k4000": timing_iou["k4000"],
         **fcos_entry(fcos["obb"]["nms"]),
     }, {

@@ -1,7 +1,7 @@
 """flax params tree (numpy leaves) -> a state dict of the port's
 ``NeRF_RCNN``, ``NeRFRegionProposalNetwork``, ``FCOSOverNeRF``,
-``InstanceNGP`` or ``InstanceNGPFast``, or of a fleet of fields (a stacked
-tree, ``fleet_params_from_jax``).
+``InstanceNGP`` or ``InstanceNGPFast``, ``ProposalClassifier``, or of a
+fleet of fields (a stacked tree, ``fleet_params_from_jax``).
 
 Mappings:
 
@@ -87,6 +87,14 @@ def rpn_params_from_jax(params) -> dict[str, torch.Tensor]:
     ``state_dict``: the backbone as for ``NeRF_RCNN``, and the head's
     ``rpn_head/conv_i``, ``cls_logits`` and ``bbox_pred`` as plain 5-D
     convs (the same leaf mapping)."""
+    return rcnn_params_from_jax(params)
+
+
+def legacy_classifier_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """Convert a flax ``ProposalClassifier`` params tree to a ``state_dict``:
+    ``conv<i>`` as 5-D convs, ``fc1`` / ``fc2`` / ``cls`` as dense layers
+    (``fc1`` takes the conv tower's output flattened channels-last in both
+    packages, so its columns need no permutation)."""
     return rcnn_params_from_jax(params)
 
 

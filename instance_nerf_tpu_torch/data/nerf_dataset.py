@@ -56,6 +56,12 @@ def _load_image(path: str) -> np.ndarray:
     return img[..., :3]
 
 
+def load_transforms(root: str, transforms_name: str = "transforms.json") -> dict:
+    """The scene's ``transforms.json`` as a dict."""
+    with open(os.path.join(root, transforms_name)) as f:
+        return json.load(f)
+
+
 def pose_to_unit_cube(c2w: np.ndarray, scale: float, offset: np.ndarray):
     out = c2w.copy()
     out[:3, 3] = out[:3, 3] * scale + offset
@@ -66,8 +72,7 @@ def load_nerf_scene(root: str, transforms_name: str = "transforms.json",
                     masks_dir: str | None = None, downscale: int = 1) -> NeRFScene:
     """An instant-ngp scene directory -> ``NeRFScene`` (poses mapped into the
     unit cube by the json's ``scale`` / ``offset``)."""
-    with open(os.path.join(root, transforms_name)) as f:
-        meta = json.load(f)
+    meta = load_transforms(root, transforms_name)
     imgs, poses, masks = [], [], []
     for fr in meta["frames"]:
         p = fr["file_path"]
@@ -103,27 +108,32 @@ def load_nerf_scene(root: str, transforms_name: str = "transforms.json",
                      hw=(h, w), masks=np.stack(masks) if masks else None)
 
 
-def write_nerf_scene(root: str, scene: NeRFScene, masks_dir: str | None = "masks") -> str:
+def write_nerf_scene(root: str, scene: NeRFScene, masks_dir: str | None = "masks",
+                     boxes=None, stem: str = "{:04d}") -> str:
     """Write ``scene`` as an instant-ngp directory: 8-bit PNG frames
-    ``images/<v>.png``, ``transforms.json`` (its intrinsics, the unit-cube
-    poses with scale 1 and offset 0) and, where the scene has masks and
-    ``masks_dir`` is given, ``<masks_dir>/<v>.npy``. Returns ``root``."""
+    ``images/<stem>.png`` (``stem`` formats the view index; the JAX
+    package's writer names them ``r_{:03d}``), ``transforms.json`` (its
+    intrinsics, the unit-cube poses with scale 1 and offset 0), where the
+    scene has masks and ``masks_dir`` is given ``<masks_dir>/<stem>.npy``,
+    and where ``boxes`` are given ``boxes.npy``. Returns ``root``."""
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     fx, fy, cx, cy = (float(v) for v in scene.intrinsics)
     frames = []
     for v in range(scene.num_views):
-        stem = f"{v:04d}"
-        write_png(os.path.join(root, "images", stem + ".png"),
+        name = stem.format(v)
+        write_png(os.path.join(root, "images", name + ".png"),
                   np.round(np.clip(scene.images[v], 0.0, 1.0) * 255.0).astype(np.uint8))
-        frames.append({"file_path": f"images/{stem}.png",
+        frames.append({"file_path": f"images/{name}.png",
                        "transform_matrix": np.asarray(scene.poses[v], np.float64).tolist()})
         if scene.masks is not None and masks_dir:
             os.makedirs(os.path.join(root, masks_dir), exist_ok=True)
-            np.save(os.path.join(root, masks_dir, stem + ".npy"), scene.masks[v])
+            np.save(os.path.join(root, masks_dir, name + ".npy"), scene.masks[v])
     meta = {"fl_x": fx, "fl_y": fy, "cx": cx, "cy": cy, "w": int(scene.hw[1]),
             "h": int(scene.hw[0]), "scale": 1.0, "offset": [0.0, 0.0, 0.0], "frames": frames}
     with open(os.path.join(root, "transforms.json"), "w") as f:
         json.dump(meta, f)
+    if boxes is not None:
+        np.save(os.path.join(root, "boxes.npy"), np.asarray(boxes))
     return root
 
 

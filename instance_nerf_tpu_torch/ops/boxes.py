@@ -47,6 +47,14 @@ def clip_boxes_to_mesh(boxes: torch.Tensor, size) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1)
 
 
+def obb_center_inside_mesh(boxes: torch.Tensor, size) -> torch.Tensor:
+    """OBB validity: the center inside ``[0, size]`` on every axis (the
+    reference drops such boxes; a mask here)."""
+    size = torch.as_tensor(size, dtype=boxes.dtype, device=boxes.device)
+    c = boxes[..., 0:3]
+    return torch.all((c >= 0) & (c <= size), dim=-1)
+
+
 def small_box_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
     """True for boxes (AABB or OBB) with *all* sides ``>= min_size``."""
     if boxes.shape[-1] == 6:

@@ -85,3 +85,16 @@ def roi_align_3d(
     if s > 1:
         out = out.reshape(k, ow, s, ol, s, oh, s, c).mean(dim=(2, 4, 6))
     return out
+
+
+def project_masks_on_boxes(gt_masks: torch.Tensor, boxes: torch.Tensor,
+                           mask_size: tuple[int, int, int]) -> torch.Tensor:
+    """Crop ground-truth voxel masks to boxes at mask resolution (the
+    reference's ``roi_align_3d`` of the binary mask grid, one mask per roi):
+    ``gt_masks`` ``(K, W, L, H)`` float or bool, mask i cropped by box i of
+    ``boxes`` ``(K, 6)`` -> ``(K, mw, ml, mh)`` f32 in [0, 1]."""
+    k = gt_masks.shape[0]
+    feats = gt_masks[..., None].to(torch.float32)
+    out = roi_align_3d(feats, boxes, torch.arange(k, device=boxes.device), mask_size,
+                       spatial_scale=1.0)
+    return out[..., 0]

@@ -55,7 +55,12 @@ from instance_nerf_tpu_torch.train.rpn_trainer import (
     padded_grid,
     rpn_dataset,
 )
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
+from instance_nerf_tpu_torch.train.timing import (
+    Stages,
+    benchmark_ms,
+    benchmark_train_steps,
+    profile_ms,
+)
 
 log = logging.getLogger("fcos_trainer")
 
@@ -359,12 +364,14 @@ class FCOSTrainer:
     def benchmark_train_step(self, reps=18, shape=(160, 160, 160), batch=4, warmup=3):
         """Train steps on the JAX trainer's synthetic batch
         (``train/loop.py:synthetic_batch``) timed with CUDA events
-        (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
-        warmed steps, scenes/s, peak device memory, every step's losses. Under
+        (``train/timing.py:benchmark_train_steps``): median and mean ms over ``reps``
+        warmed steps, scenes/s, peak device memory, every step's losses, and
+        the JAX trainer's ``peak_hbm_gib``, ``tflops_per_step``,
+        ``achieved_tflops`` and ``mfu``. Under
         a mesh ``batch`` is the global batch: each rank times its step with its
         all-reduce, and scenes/s is the global batch's."""
-        return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
-                               reps=reps, warmup=warmup)
+        return benchmark_train_steps(self._card_train_step(batch, shape), self.device, batch,
+                                     reps=reps, warmup=warmup)
 
     def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
         """Where a train step's time goes (``train/timing.py:profile_ms``), by

@@ -59,7 +59,12 @@ from instance_nerf_tpu_torch.train.checkpoints import (
 )
 from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
 from instance_nerf_tpu_torch.train.loop import device_batch, device_indices, train_epochs
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
+from instance_nerf_tpu_torch.train.timing import (
+    Stages,
+    benchmark_ms,
+    benchmark_train_steps,
+    profile_ms,
+)
 from instance_nerf_tpu_torch.train.train_utils import partition_optimizer
 
 log = logging.getLogger("rcnn_trainer")
@@ -470,10 +475,12 @@ class RCNNTrainer:
 
     def benchmark_train_step(self, reps=18, shape=(160, 160, 160), batch=4, warmup=3):
         """Train steps on the synthetic batch timed with CUDA events
-        (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
-        warmed steps, scenes/s, peak device memory, every step's losses."""
-        return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
-                               reps=reps, warmup=warmup)
+        (``train/timing.py:benchmark_train_steps``): median and mean ms over ``reps``
+        warmed steps, scenes/s, peak device memory, every step's losses, and
+        the JAX trainer's ``peak_hbm_gib``, ``tflops_per_step``,
+        ``achieved_tflops`` and ``mfu``."""
+        return benchmark_train_steps(self._card_train_step(batch, shape), self.device, batch,
+                                     reps=reps, warmup=warmup)
 
     def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
         """Where a train step's time goes (``train/timing.py:profile_ms``), by

@@ -4,7 +4,8 @@
 stage of an inference path or a training step and, while a profile
 collects, CUDA events too.
 ``benchmark_ms`` and ``profile_ms`` time a zero-argument callable that
-runs the path once.
+runs the path once; ``benchmark_train_steps`` adds a train step's model
+FLOPs and MFU.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import time
 import numpy as np
 import torch
 from torch.profiler import record_function
+
+from instance_nerf_tpu_torch.utils.hbm import GIB, step_stats
 
 
 class Stages:
@@ -79,6 +82,18 @@ def benchmark_steps(step, device, batch: int, reps=18, warmup=3) -> dict:
     out = benchmark_ms(lambda: seen.append(step()), device, reps=reps, warmup=warmup)
     out["scenes_per_s"] = batch / out["median_ms"] * 1e3
     out["losses"] = [{k: float(v) for k, v in m.items()} for m in seen]
+    return out
+
+
+def benchmark_train_steps(step, device, batch: int, reps=18, warmup=3) -> dict:
+    """``benchmark_steps`` of a train step, then the JAX trainers' model
+    keys: one more step runs under the FLOP counter
+    (``utils/hbm.py:step_stats``), which gives ``flops_per_step``,
+    ``tflops_per_step``, ``achieved_tflops`` and ``mfu`` at the median step
+    time; ``peak_hbm_gib`` is the timed steps' peak device memory."""
+    out = benchmark_steps(step, device, batch, reps=reps, warmup=warmup)
+    out.update(step_stats(step, step_ms=out["median_ms"]))
+    out["peak_hbm_gib"] = out["peak_mem_bytes"] / GIB
     return out
 
 

@@ -68,3 +68,15 @@ def test_aabb_coder_encode_decode(seed):
     # round trip
     back = tc.decode(enc_t, torch.from_numpy(props)).numpy()
     np.testing.assert_allclose(back, gt, rtol=1e-5, atol=1e-4)
+
+
+def test_obb_center_inside_mesh_matches_jax():
+    rng = np.random.default_rng(9)
+    obb = rng.uniform(-5, 45, (64, 7)).astype(np.float32)
+    obb[0, :3] = [0.0, 40.0, 30.0]  # on the boundary: inside
+    obb[1, :3] = [40.0, 40.0, np.nextafter(np.float32(30), np.float32(31))]
+    size = (40.0, 40.0, 30.0)
+    want = np.asarray(JB.obb_center_inside_mesh(jnp.asarray(obb), size))
+    got = TB.obb_center_inside_mesh(torch.from_numpy(obb), size).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] and not got[1] and 0 < got.sum() < 64

@@ -65,7 +65,16 @@ def test_port_has_every_slice_module():
               "parallel.ngp_train_step", "eval.instance_field_metrics", "data.png",
               "masks2d.project_masks", "masks2d.match_seg", "masks2d.coco_nyu40",
               # slice 7a: training over several cards
-              "parallel.mesh", "data.prefetch"):
+              "parallel.mesh", "data.prefetch",
+              # slice 7c: the composed pipeline, the legacy classification
+              # path, the FLOP / memory / profiling utilities, the scripts and
+              # the rest of masks2d
+              "pipeline", "ops.legacy_roi_pool", "models.legacy_classifier",
+              "utils.flops", "utils.hbm", "utils.profiling", "utils.logging",
+              "scripts.proposals2ngp", "scripts.render_heatmap",
+              "scripts.visualize_rpn_input", "masks2d.refine_masks",
+              "masks2d.async_predictor", "masks2d.run_mask2former",
+              "masks2d.coco2nyu40_cli"):
         assert f"instance_nerf_tpu_torch.{m}" in mods, m
 
 
@@ -158,6 +167,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         project_masks.project_voxel_masks(np.zeros((2, 2, 2), np.int32),
                                           np.zeros((2, 2, 2), np.float32), np.eye(4),
                                           (1, 1, 0, 0), (1, 1))
+    from instance_nerf_tpu_torch import pipeline
+    from instance_nerf_tpu_torch.models.legacy_classifier import LegacyProposalScorer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.main(["--workdir", "nowhere"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LegacyProposalScorer()
 
 
 def test_nms_boxes_on_cpu_runs_plain_without_counting():

@@ -3,6 +3,8 @@
 passed to the port (threefry streams cannot be reproduced in torch).
 Discrete outputs (occupancy, compacted sample ids, instance masks) must be
 equal; floats to f32 tolerance."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -246,3 +248,27 @@ def test_load_nerf_scene_matches(tmp_path, downscale):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
     assert got.intrinsics == want.intrinsics and got.hw == want.hw
     assert got.images.shape == (2, 16 // downscale, 20 // downscale, 3)
+
+
+def test_load_transforms_and_the_jax_layout_match(tmp_path):
+    """``load_transforms`` reads the JAX writer's ``transforms.json`` as the
+    JAX function does; the port's writer with the JAX view names and boxes
+    writes the JAX layout, which both loaders read the same."""
+    scene, boxes = JD.make_synthetic_nerf_scene(np.random.default_rng(5), n_views=2,
+                                                hw=(12, 16), n_blobs=2)
+    JD.write_nerf_scene(str(tmp_path / "jax"), scene, boxes)
+    assert (TD.load_transforms(str(tmp_path / "jax"))
+            == JD.load_transforms(str(tmp_path / "jax")))
+    TD.write_nerf_scene(str(tmp_path / "port"), scene, boxes=boxes, stem="r_{:03d}")
+    for sub in ("images", "masks"):
+        assert sorted(os.listdir(tmp_path / "port" / sub)) == sorted(
+            os.listdir(tmp_path / "jax" / sub))
+    np.testing.assert_array_equal(np.load(tmp_path / "port" / "boxes.npy"),
+                                  np.load(tmp_path / "jax" / "boxes.npy"))
+    meta = TD.load_transforms(str(tmp_path / "port"))
+    assert [f["file_path"] for f in meta["frames"]] == [
+        f["file_path"] for f in JD.load_transforms(str(tmp_path / "jax"))["frames"]]
+    got = TD.load_nerf_scene(str(tmp_path / "port"), masks_dir=str(tmp_path / "port" / "masks"))
+    want = JD.load_nerf_scene(str(tmp_path / "port"), masks_dir=str(tmp_path / "port" / "masks"))
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_array_equal(got.masks, want.masks)

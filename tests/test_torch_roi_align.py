@@ -92,3 +92,16 @@ def test_cbrt_is_exact_on_cubes():
 
     assert _cbrt(vol).tolist() == [0.0, 1.0, 2.0, 3.0, 64.0, 160.0]
     assert math.isclose(float(_cbrt(torch.tensor([2.0]))), 2 ** (1 / 3), rel_tol=1e-7)
+
+
+def test_project_masks_on_boxes_matches_jax():
+    from instance_nerf_tpu.ops.roi_align import project_masks_on_boxes as j_project
+    from instance_nerf_tpu_torch.ops.roi_align import project_masks_on_boxes
+
+    rng = np.random.default_rng(3)
+    masks = rng.uniform(size=(6, 12, 10, 9)) < 0.4
+    boxes = _rois(rng, 6, 12.0)
+    want = np.asarray(j_project(jnp.asarray(masks), jnp.asarray(boxes), (7, 7, 7)))
+    got = project_masks_on_boxes(torch.from_numpy(masks), torch.from_numpy(boxes), (7, 7, 7))
+    assert got.dtype == torch.float32 and got.shape == (6, 7, 7, 7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
