@@ -2,6 +2,7 @@
 """Chip check of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only slice_spatial   # env, build and slice_spatial alone
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -53,7 +54,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the rotated anchor RPN with ``resnet`` at 200x200x130 padded to
    224x224x160 (B2, K = 4000); the RCNN with ``resnet`` at 200x200x132 (20
    rois, B1). Each run's kernel must launch, its outputs equal a re-run
-   with the plain sweep; reports ``predict_scene`` ms (median of 10 warmed
+   with the plain sweep; reports ``predict_scene`` ms (median of 5 warmed
    runs), stage spans, peak bytes, busy share, top kernels and the device
    time of the window attention and of the first conv (patch embed, stem).
 8b2. ``small_reference_backbones``: a swin_t-shaped Swin and the ResNet-FPN
@@ -149,7 +150,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    starts itself there (``--dist-child slice_dist``). FCOS AABB at the JAX
    trainer's defaults (global batch 4, 160^3, bf16, VGG-EF): after 3 steps
    in deterministic mode the launched params must equal this process's
-   one-process trainer's bit for bit with one rank; 18 timed steps (ms,
+   one-process trainer's bit for bit with one rank; 6 timed steps (ms,
    global scenes/s, peak bytes), the ``allreduce`` span and the gradient
    bytes it moves. The B = 32 fleet of ``slice_fleet`` at run_fleet's
    defaults with ``--pallas_grad``, split over the ranks: B3 once per rank
@@ -162,6 +163,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    FCOS AABB, the rotated RPN and the RCNN (f64 gradients 1e-5 of their
    max, f32 losses 1e-5; f32 gradients reported), the ray-sharded field
    step (B3 once a rank) and a B = 4 fleet step (f32, 1e-5).
+13f1. ``slice_spatial`` (main path of slice 7b): FCOS training with each
+   scene's W split over the ``sp`` ranks (halo exchanges in every conv,
+   pool and upsample, GroupNorm statistics summed over the ranks), at the
+   JAX defaults (global batch 4, 160^3, bf16, VGG-EF, AABB): 2 ranks on the
+   card over gloo, ``sp = 2`` (its ranks run in ``small_reference_dist``'s
+   launch; with ``--only slice_spatial`` on four cards NCCL, ``sp = 4`` and
+   ``data 2 x sp 2``): the step ms, the spans (``halo`` among them), the
+   halo bytes a step and each rank's peak bytes beside the one-process
+   cell's; f64 FCOS AABB and rotated steps (VGG-AF, 40x40x36: levels of 5
+   and 3 rows split unevenly) against this process's one-process step
+   (losses 1e-6, gradients 1e-5 of their max); ``run_fcos --n_spatial 2
+   --mode train`` at 64^3, 2 epochs (B1 in rank 0's evals, one checkpoint
+   and ``best/``).
 13g. ``pipeline`` (main path of slice 7c): the five-stage pipeline
    through ``python -m instance_nerf_tpu_torch.pipeline``'s ``main`` at the
    JAX example's defaults (a 10-view 64^2 scene, 2 held out; the brick
@@ -194,7 +208,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    B1's in the pipeline's stage 3 (``launches_pipeline``, ``k_pipeline``),
    B2's on the legacy path (``launches_legacy``)
    and on the Swin and ResNet paths (``launches_backbones``), and in rank
-   0's evals under the launcher (``launches_dist_train_loop``);
+   0's evals under the launcher (``launches_dist_train_loop``, and B1's on
+   the spatial axis: ``launches_spatial_train_loop``);
    B3's its launches on the field CLI's and the fleet's paths
    (``launches_field_cli``, ``launches_field_cli_fast``,
    ``launches_fleet``), in the fleet split over the ranks
@@ -334,6 +349,17 @@ def _counted():
     return {"nms_boxes": nms_cuda.nms_boxes, "nms_sweep": nms_cuda.nms_sweep,
             "scatter_add": scatter_cuda.scatter_add,
             "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup}
+
+
+def lap(parts: dict, name: str, since: float) -> float:
+    """Add the host seconds since ``since`` (the device synchronized) to
+    ``parts[name]``, a phase's parts; returns now."""
+    import torch
+
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    parts[name] = parts.get(name, 0.0) + now - since
+    return now
 
 
 def zero_launches() -> None:
@@ -603,10 +629,15 @@ def phase_slice_rcnn(backbone="vgg_EF", phase="slice_rcnn"):
             "mask_shape": list(masks.shape), "plain_nms_identical": True,
             "same_as_predict_scene": same_as_predict}
     if backbone != "vgg_EF":
+        parts, t = {"main_path_timing": time.perf_counter() - t0}, time.perf_counter()
         line["run"] = f"rcnn_{backbone}"
-        line["profile"] = trainer.profile(reps=5, shape=(200, 200, 132), top=16)
+        line["profile"] = trainer.profile(reps=BACKBONE_PROFILE_REPS, shape=(200, 200, 132),
+                                          top=16)
+        t = lap(parts, "profile", t)
         line["module_ms"] = module_times(trainer.model.backbone,
                                          lambda: trainer.predict_scene(grid, rois))
+        lap(parts, "module_ms", t)
+        line["parts_s"] = parts
     emit(line)
     del trainer, grid, masks
     torch.cuda.empty_cache()
@@ -813,8 +844,14 @@ def phase_slice_rpn(backbone="vgg_EF", phase="slice_rpn"):
                              f"expected the valid ones of K = {k}")
     del feats, obj, reg, props_k, props_p
 
-    bench = trainer.benchmark(reps=10, shape=shape)
-    prof = trainer.profile(reps=5, shape=shape, top=12 if backbone == "vgg_EF" else 16)
+    vgg = backbone == "vgg_EF"
+    parts, t = {"main_path_and_plain_rerun": time.perf_counter() - t0}, time.perf_counter()
+    bench = trainer.benchmark(reps=SLICE_BENCH_REPS if vgg else BACKBONE_BENCH_REPS,
+                              shape=shape)
+    t = lap(parts, "benchmark", t)
+    prof = trainer.profile(reps=SLICE_PROFILE_REPS if vgg else BACKBONE_PROFILE_REPS,
+                           shape=shape, top=12 if vgg else 16)
+    t = lap(parts, "profile", t)
     line = {"phase": phase, "grid": list(shape), "padded": [pad_to_32(d) for d in shape],
             "backbone": backbone, "anchors_per_location": 13, "rotated_bbox": True,
             "pre_nms_top_n": cfg.pre_nms_top_n, "post_nms_top_n": cfg.post_nms_top_n,
@@ -828,6 +865,8 @@ def phase_slice_rpn(backbone="vgg_EF", phase="slice_rpn"):
         line["run"] = f"rpn_rotated_{backbone}"
         line["module_ms"] = module_times(trainer.model.backbone,
                                          lambda: trainer.predict_scene(grid))
+        lap(parts, "module_ms", t)
+    line["parts_s"] = parts
     emit(line)
     del trainer, grid
     torch.cuda.empty_cache()
@@ -956,6 +995,11 @@ def module_times(backbone, run, reps=3) -> dict:
 
 
 FCOS_GRID = (160, 160, 160)
+# predict_scene's warmed runs timed and profiled: the VGG-EF slices', then
+# the Swin and ResNet runs of slice_backbones (a profiled run's trace costs
+# seconds to read; fewer runs for the time limit)
+SLICE_BENCH_REPS, SLICE_PROFILE_REPS = 10, 2
+BACKBONE_BENCH_REPS, BACKBONE_PROFILE_REPS = 5, 1
 # small_reference_fcos: the seeded cls and centerness kernels times these
 # put the 64^3 grid's proposal scores 1e-5 apart or more (the CPU run reads
 # 1.13e-5 for AABBs at 5 and 3.2e-5 for OBBs at 7)
@@ -979,9 +1023,11 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     )
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
 
+    parts, t = {}, time.perf_counter()
     cfg = FCOSConfig(rotated_bbox=rotated, dtype="bfloat16", seed=0, backbone_type=backbone)
     trainer = FCOSTrainer(cfg, device="cuda")
     trainer.init_state()
+    t = lap(parts, "setup", t)
     mode = "obb" if rotated else "aabb"
     kernel, plain = (nms_sweep, nms_sweep_plain) if rotated else (nms_boxes, nms_boxes_plain)
 
@@ -1029,6 +1075,7 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     if not same_as_predict:
         raise AssertionError(f"FCOS {mode}: the re-run post-processing differs from "
                              "predict_scene's proposals")
+    t = lap(parts, "main_path_and_plain_rerun", t)
     x, svalid, keep_plain, plain_ms = captured[0]
     r = int(logits.shape[1])
     k = len(cfg.fpn_strides) * min(cfg.pre_nms_top_n, r)  # candidates into the NMS
@@ -1060,8 +1107,14 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
            "launches": launches["nms_sweep" if rotated else "nms_boxes"], **timing}
     del x, svalid, keep
 
-    bench = trainer.benchmark(reps=10, shape=FCOS_GRID)
-    prof = trainer.profile(reps=5, shape=FCOS_GRID, top=16)
+    t = lap(parts, "nms_timing", t)
+    vgg = backbone == "vgg_EF"
+    bench = trainer.benchmark(reps=SLICE_BENCH_REPS if vgg else BACKBONE_BENCH_REPS,
+                              shape=FCOS_GRID)
+    t = lap(parts, "benchmark", t)
+    prof = trainer.profile(reps=SLICE_PROFILE_REPS if vgg else BACKBONE_PROFILE_REPS,
+                           shape=FCOS_GRID, top=16)
+    t = lap(parts, "profile", t)
     report = {"box_mode": mode, "backbone": backbone, "launches": launches,
               "first_call_s": round(first_s, 3),
               "proposals": n, "levels": torch.bincount(lvls, minlength=4).tolist(),
@@ -1070,6 +1123,8 @@ def fcos_mode(rotated, grid, backbone="vgg_EF", time_nms=True):
     if backbone != "vgg_EF":
         report["module_ms"] = module_times(trainer.model.backbone,
                                            lambda: trainer.predict_scene(grid))
+        lap(parts, "module_ms", t)
+    report["parts_s"] = parts
     del trainer
     torch.cuda.empty_cache()
     return report
@@ -1101,7 +1156,8 @@ def phase_slice_backbones(smi):
     (20 rois, 25 detections, B1). Each run: its launches counted (the
     counts zeroed just before it, at least one launch of its kernel), its
     proposals or detections equal to a re-run with the plain sweep,
-    ``predict_scene`` ms (median of 10 warmed runs), the stage spans, peak
+    ``predict_scene`` ms (median of ``BACKBONE_BENCH_REPS`` warmed runs, the
+    profile over ``BACKBONE_PROFILE_REPS``), the stage spans, peak
     bytes, the busy share, and the device time of the attention and of the
     first conv."""
     import torch
@@ -2404,10 +2460,14 @@ def phase_slice_train(smi):
             t0 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             try:
+                t = time.perf_counter()
                 bench = tr.benchmark_train_step(reps=18, warmup=3, shape=cell["shape"],
                                                 batch=batch)
-                prof = tr.profile_train(reps=3, warmup=1, shape=cell["shape"], batch=batch,
+                t, bench_s = time.perf_counter(), time.perf_counter() - t
+                # the benchmark's 21 steps warmed it: one profiled step
+                prof = tr.profile_train(reps=1, warmup=0, shape=cell["shape"], batch=batch,
                                         top=8)
+                profile_s = time.perf_counter() - t
                 break
             except torch.cuda.OutOfMemoryError as e:
                 oom.append({"batch": batch,
@@ -2433,6 +2493,7 @@ def phase_slice_train(smi):
                 "top_kernels": prof["top_kernels"], "losses_first": losses[0],
                 "losses_step20": losses[20], "all_finite": finite,
                 "kernel_launches": launches, "seconds": time.perf_counter() - t0,
+                "parts_s": {"benchmark": bench_s, "profile": profile_s},
                 "device": bench["device"], "nvidia_smi": smi,
                 # FCOS and RCNN: the JAX trainers' model keys (slice 7c)
                 **{k: bench[k] for k in ("flops_per_step", "tflops_per_step",
@@ -2668,7 +2729,10 @@ def phase_train_loop():
 # -- slice 7a: training over several cards ---------------------------------------
 
 DIST_STEPS = 3  # FCOS steps before the launched params are held to one process's
-DIST_FLEET_STEPS = {"train": 16, "bench": 32}
+DIST_FLEET_STEPS = {"train": 16, "bench": 16}
+# the launched FCOS step's timing: warm-up and timed steps, then the profile's
+DIST_BENCH = dict(warmup=2, reps=6)
+DIST_PROFILE = dict(warmup=0, reps=1)
 DIST_TIMEOUT_S = 300
 # small_reference_dist: a 48x40x36 grid, batch 2, the reference backbone
 DIST_REF_SHAPE = (48, 40, 36)
@@ -2772,13 +2836,17 @@ def child_slice_dist(out, fleet_pattern):
     from instance_nerf_tpu_torch.parallel.train_step import gradient_bytes
 
     # the FCOS step at the JAX trainer's defaults: 3 steps, then the timing
+    parts, t = {}, time.perf_counter()
     tr, params = _fcos_params_after_steps()
+    t = lap(parts, "fcos_steps", t)
     backend, world = dist.get_backend(), dist.get_world_size()
     if _rank() == 0:
         torch.save(params, os.path.join(out, "fcos_params.pt"))
     del params
-    bench = tr.benchmark_train_step(reps=18, warmup=3)
-    prof = tr.profile_train(reps=5, warmup=2)
+    bench = tr.benchmark_train_step(**DIST_BENCH)
+    t = lap(parts, "fcos_benchmark", t)
+    prof = tr.profile_train(**DIST_PROFILE)
+    t = lap(parts, "fcos_profile", t)
     _write(out, "fcos_step", {
         "backend": backend, "world": world, "mesh": repr(tr.mesh), "device": str(tr.device),
         "step_ms": bench["median_ms"], "step_ms_mean": bench["mean_ms"],
@@ -2815,6 +2883,7 @@ def child_slice_dist(out, fleet_pattern):
     # the benchmark trained on: restored on the ranks, each block is the saved one
     fl.restore(os.path.join(out, "fleet_ckpt"))
     restored = _same_state(_fleet_state(fl), (state, count))
+    t = lap(parts, "fleet", t)
     _write(out, "fleet", {"launches": launches, "train_s": train_s, "mesh": repr(fl.mesh),
                           "scenes": [fl._sl.start, fl._sl.stop], "benchmark": bench,
                           "restored_on_ranks_bit_identical": restored})
@@ -2861,7 +2930,9 @@ def child_slice_dist(out, fleet_pattern):
                                   if _rank() == 0 else None),
                       "checkpoints": sorted(os.listdir(save))}
         dist.barrier()
+    lap(parts, "clis", t)
     _write(out, "clis", clis)
+    _write(out, "parts", parts)
 
 
 def phase_slice_dist(work, smi):
@@ -2870,7 +2941,7 @@ def phase_slice_dist(work, smi):
     FCOS AABB at the JAX trainer's defaults (global batch 4, 160^3, bf16,
     VGG-EF): after 3 steps in deterministic mode (``deterministic``) the
     launched params must equal this process's one-process trainer's bit for
-    bit with one rank; 18 timed steps (ms,
+    bit with one rank; ``DIST_BENCH`` timed steps (ms,
     global scenes/s, peak bytes), the ``allreduce`` span and the gradient
     bytes it moves. The B = 32 fleet at run_fleet's defaults with
     ``--pallas_grad`` split over the ranks: B3 once per rank per step,
@@ -2954,6 +3025,7 @@ def phase_slice_dist(work, smi):
         if len([k for k in kept if k.startswith("step_")]) != 1 or "best" not in kept:
             failed.append(f"{name}: checkpoints {kept}")
     report["launches_dist_train_loop"] = launches
+    report["rank0_parts_s"] = _read(out, "parts")
     report["phase_s"] = time.perf_counter() - t0
     emit(report)
     if failed:
@@ -3113,7 +3185,7 @@ def child_small_reference_dist(out):
                         "backend": torch.distributed.get_backend()})
 
 
-def phase_small_reference_dist(work):
+def phase_small_reference_dist(work, also=()):
     """2 ranks on the one card over gloo (named here: NCCL takes one rank a
     card) against this process's one-process card run on the same global
     inputs: one step of FCOS AABB, the rotated RPN and the RCNN at
@@ -3126,7 +3198,8 @@ def phase_small_reference_dist(work):
     losses are held to 1e-5 and their f32 gradients reported), the field's
     and the fleet's in f32 (the fleet's dense grid, rounded to bf16 by
     design, to one bf16 ulp). The one-process runs go first, to files the
-    ranks compare against."""
+    ranks compare against. ``also``: a later phase's part for the same 2
+    ranks (``launch_parts``), run in this launch after this phase's."""
     import torch
 
     out = os.path.join(work, "dist_ref")
@@ -3138,7 +3211,7 @@ def phase_small_reference_dist(work):
                os.path.join(out, "one_detectors.pt"))
     del one
     torch.cuda.empty_cache()
-    launch(2, ["small_reference_dist", out])
+    launch(2, launch_parts(["small_reference_dist", out], *also))
     ranks = [_read(out, "ref", r) for r in (0, 1)]
     report = {"phase": "small_reference_dist", "ranks": 2, "backend": ranks[0]["backend"],
               "field_b3_launches_per_rank": [r["field_b3_launches"] for r in ranks],
@@ -3147,6 +3220,229 @@ def phase_small_reference_dist(work):
     failed = ranks[0]["failed"] + ranks[1]["failed"]
     if report["field_b3_launches_per_rank"] != [1, 1]:
         failed.append(f"field: B3 launched {report['field_b3_launches_per_rank']} a rank")
+    emit(report)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return report
+
+
+# -- slice 7b: the mesh's spatial axis -------------------------------------------
+
+# the f64 reference's grid: levels 10, 5, 3, 2 along W, the 5- and 3-row
+# levels split unevenly over 2 ranks (over 4, ranks without rows)
+SPATIAL_REF_SHAPE = (40, 40, 36)
+# the full-width cell: warm-up and timed steps of the benchmark, then the
+# profile's
+SPATIAL_BENCH = dict(warmup=1, reps=4)
+SPATIAL_PROFILE = dict(warmup=0, reps=1)
+
+
+def spatial_layouts(world: int) -> list:
+    """The ``n_spatial`` of each layout a launch of ``world`` ranks runs: all
+    ranks on W, and on four or more ``data 2 x sp 2`` as well."""
+    return [world] if world < 4 else [world, 2]
+
+
+def _spatial_ref_runs(mesh=None):
+    """slice_spatial's reference: one f64 FCOS step, AABB and rotated, VGG-AF
+    (``REF_TRAIN_BACKBONE``), the synthetic global batch of 2 at
+    ``SPATIAL_REF_SHAPE``, of one process (``mesh`` None) or of one rank:
+    {name: (metrics, the gradients the optimizer was given)}."""
+    import torch
+
+    out = {}
+    for name, rotated in (("fcos_aabb", False), ("fcos_rotated", True)):
+        tr = make_trainer("fcos", rotated, "cuda", mesh=mesh, batch_size=2, dtype="float32",
+                          max_gt=6, seed=5, backbone_type=REF_TRAIN_BACKBONE)
+        tr.init_state()
+        tr.model.double()
+        loader = tr._card_train_batch
+        tr._card_train_batch = lambda *a, f=loader: tuple(
+            x.double() if x.is_floating_point() else x for x in f(*a))
+        seen = _capture_grads(tr.state.tx)
+        metrics = tr._card_train_step(2, SPATIAL_REF_SHAPE)()
+        out[name] = ({k: float(v) for k, v in metrics.items()}, seen[0])
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def child_slice_spatial(out, backend="gloo"):
+    """One rank of ``slice_spatial`` under the launcher: the full-width cell
+    of each layout (``spatial_layouts``), the f64 reference, then
+    ``run_fcos --n_spatial 2 --mode train``."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from instance_nerf_tpu_torch.cli import run_fcos
+    from instance_nerf_tpu_torch.data.synthetic import write_dataset
+    from instance_nerf_tpu_torch.parallel.mesh import make_mesh
+    from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+
+    if not dist.is_initialized():  # alone: join the launcher's group, bind the card
+        make_mesh(backend=backend, device="cuda")
+    release()  # what an earlier part of the launch left: the peaks count this one's
+    world = dist.get_world_size()
+    report = {"backend": dist.get_backend(), "world": world, "cells": {}, "ref": {}}
+    for n_sp in spatial_layouts(world):
+        # the full-width cell at the JAX defaults: its timed steps, each
+        # rank's peak bytes, the halo bytes a step, the spans
+        parts = {}
+        t0 = t = time.perf_counter()
+        tr = FCOSTrainer(FCOSConfig(n_spatial=n_sp), device="cuda")
+        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+        t = lap(parts, "setup", t)
+        torch.cuda.reset_peak_memory_stats()
+        tr.mesh.halo.update(bytes=0, exchanges=0)
+        bench = tr.benchmark_train_step(shape=FCOS_GRID, batch=4, **SPATIAL_BENCH)
+        halo = dict(tr.mesh.halo)
+        steps = SPATIAL_BENCH["warmup"] + SPATIAL_BENCH["reps"] + 1  # and the FLOP count's
+        t = lap(parts, "benchmark", t)
+        prof = tr.profile_train(shape=FCOS_GRID, batch=4, **SPATIAL_PROFILE)
+        lap(parts, "profile", t)
+        report["cells"][f"sp{n_sp}"] = {
+            "mesh": repr(tr.mesh), "step_ms": bench["median_ms"], "step_ms_mean": bench["mean_ms"],
+            "step_ms_min": bench["min_ms"], "scenes_per_s": bench["scenes_per_s"],
+            "peak_mem_bytes": bench["peak_mem_bytes"],
+            "halo_bytes_per_step": halo["bytes"] / steps,
+            "halo_exchanges_per_step": halo["exchanges"] / steps,
+            "spans_ms": prof["stages_ms_median"], "profile_wall_ms": prof["wall_ms_median"],
+            "device_busy_share": prof["device_busy_share"],
+            "tflops_per_step": bench.get("tflops_per_step"), "mfu": bench.get("mfu"),
+            "losses_last": bench["losses"][-1],
+            "losses_finite": all(np.isfinite(v) for m in bench["losses"] for v in m.values()),
+            "seconds": time.perf_counter() - t0, "parts_s": parts}
+        del tr
+        release()
+        # the f64 reference on this layout
+        t0 = time.perf_counter()
+        mesh = make_mesh(n_data=world // n_sp, n_spatial=n_sp, device="cuda")
+        mine = _spatial_ref_runs(mesh)
+        if _rank() == 0:
+            one = torch.load(os.path.join(out, "one_spatial.pt"), weights_only=False)
+            rep = {}
+            for name, (m1, g1) in one.items():
+                m2, g2 = mine[name]
+                errs = {k: _rel(g2[k], g1[k]) for k in g1}
+                rep[name] = {"num_pos": [m1["num_pos"], m2["num_pos"]],
+                             "max_rel_err_losses": max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-6)
+                                                       for k in m1),
+                             "max_grad_err": max(errs.values()),
+                             "worst": max(errs, key=errs.get)}
+            report["ref"][f"sp{n_sp}"] = dict(rep, seconds=time.perf_counter() - t0,
+                                              mesh=repr(mesh))
+        del mine
+        release()
+    # the CLI's train mode with the spatial axis: B1 in rank 0's evals
+    t0 = time.perf_counter()
+    root = os.path.join(out, "data")
+    if _rank() == 0:
+        write_dataset(root, num_scenes=4, grid_size=(64, 64, 48), seed=0)
+    dist.barrier()
+    save = os.path.join(out, "fcos_sp")
+    buf = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(buf):
+        run_fcos.main(["--mode", "train", "--eval_interval", "1", "--batch_size", "2",
+                       "--keep_checkpoints", "1", "--resolution", "64", "--num_epochs", "2",
+                       "--n_spatial", "2", "--features_path", os.path.join(root, "features"),
+                       "--boxes_path", os.path.join(root, "metadata"),
+                       "--dataset_split", os.path.join(root, "dataset_split.json"),
+                       "--save_path", save])
+    report["cli"] = {"launches": read_launches(), "seconds": time.perf_counter() - t0,
+                     "summary": (json.loads(buf.getvalue().strip().splitlines()[-1])
+                                 if _rank() == 0 else None),
+                     "checkpoints": sorted(os.listdir(save))}
+    dist.barrier()
+    _write(out, "spatial", report)
+
+
+def prepare_slice_spatial(work) -> str:
+    """slice_spatial's one-process f64 reference on the card, to the file
+    its ranks compare against; returns the phase's directory."""
+    import torch
+
+    out = os.path.join(work, "spatial")
+    os.makedirs(out)
+    torch.save(_spatial_ref_runs(None), os.path.join(out, "one_spatial.pt"))
+    release()
+    return out
+
+
+def phase_slice_spatial(work, smi, out=None, one_cell=None):
+    """Main path of slice 7b: FCOS training with each scene's W split over
+    the ``sp`` ranks of a launched mesh (``parallel/spatial.py``), at the
+    JAX defaults (global batch 4, 160^3, bf16, VGG-EF, AABB). On one card 2
+    ranks over gloo (NCCL takes one rank a card; gloo's point-to-point
+    calls stage the halos through the host, so the step time is a reading,
+    not a speed), ``sp = 2``; on four cards NCCL, ``sp = 4`` and ``data 2 x
+    sp 2``. Per layout: the step ms (median of the timed steps), the spans
+    ``forward``, ``loss``, ``backward``, ``allreduce``, ``halo``, the halo
+    bytes a step (summed over the ranks) and each rank's peak bytes beside
+    the one-process cell's (``one_cell``: slice_train's ``fcos_aabb``, the
+    same cell, or measured here); an f64 step of FCOS AABB and rotated,
+    VGG-AF at ``SPATIAL_REF_SHAPE``, held to this process's one-process
+    step (losses 1e-6, every gradient 1e-5 of its largest entry); ``run_fcos
+    --n_spatial 2 --mode train`` at 64^3, 2 epochs (B1 in rank 0's evals,
+    one checkpoint and ``best/``). ``out``: the directory of a launch that
+    already ran the ranks' part (``small_reference_dist``'s); else the
+    phase launches them itself, after its one-process reference."""
+    import torch
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    if one_cell is None:
+        tr = make_trainer("fcos", False, "cuda")
+        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+        one_cell = tr.benchmark_train_step(shape=FCOS_GRID, batch=4, **SPATIAL_BENCH)
+        del tr
+        release()
+    if out is None:
+        out = prepare_slice_spatial(work)
+        ranks = max(n, 2)
+        launch(ranks, ["slice_spatial", out, "nccl" if n > 1 else "gloo"])
+    else:
+        ranks = 2
+    rep = [_read(out, "spatial", r) for r in range(ranks)]
+    failed = []
+    cells = {}
+    for name, cell in rep[0]["cells"].items():
+        per_rank = [r["cells"][name] for r in rep]
+        cells[name] = {**cell, "peak_mem_bytes_per_rank": [c["peak_mem_bytes"] for c in per_rank],
+                       "halo_bytes_per_step": sum(c["halo_bytes_per_step"] for c in per_rank),
+                       "halo_exchanges_per_step_rank0": cell["halo_exchanges_per_step"],
+                       "one_process_peak_mem_bytes": one_cell["peak_mem_bytes"],
+                       "one_process_step_ms": one_cell.get("median_ms",
+                                                           one_cell.get("step_ms_median"))}
+        del cells[name]["peak_mem_bytes"], cells[name]["halo_exchanges_per_step"]
+        if not all(c["losses_finite"] for c in per_rank):
+            failed.append(f"{name}: a loss is not finite")
+        if not cell["halo_bytes_per_step"] > 0 or "halo" not in cell["spans_ms"]:
+            failed.append(f"{name}: no halo exchanged or no halo span")
+    for name, ref in rep[0]["ref"].items():
+        for kind in ("fcos_aabb", "fcos_rotated"):
+            r = ref[kind]
+            if r["max_rel_err_losses"] > 1e-6 or r["max_grad_err"] > 1e-5 or not (
+                    r["num_pos"][0] == r["num_pos"][1] > 0):
+                failed.append(f"ref {name} {kind}: {r}")
+    cli = rep[0]["cli"]
+    kept = cli["checkpoints"]
+    if cli["launches"]["nms_boxes"] == 0:
+        failed.append("run_fcos --n_spatial 2: B1 was not launched in rank 0's evals")
+    if len([k for k in kept if k.startswith("step_")]) != 1 or "best" not in kept:
+        failed.append(f"run_fcos --n_spatial 2: checkpoints {kept}")
+    report = {"phase": "slice_spatial", "ranks": ranks, "backend": rep[0]["backend"],
+              "grid": list(FCOS_GRID), "batch": 4, "backbone": "vgg_EF", "dtype": "bfloat16",
+              "nvidia_smi": smi, "cells": cells, "ref": rep[0]["ref"],
+              "ref_shape": list(SPATIAL_REF_SHAPE),
+              "cli": {k: cli[k] for k in ("launches", "seconds", "summary", "checkpoints")},
+              "rank_seconds": {"cells": {k: c["seconds"] for k, c in cells.items()},
+                               "ref": {k: r["seconds"] for k, r in rep[0]["ref"].items()},
+                               "cli": cli["seconds"]},
+              "phase_s": time.perf_counter() - t0}
     emit(report)
     if failed:
         raise AssertionError("; ".join(failed))
@@ -3439,11 +3735,30 @@ def phase_utils(work, smi):
     return line
 
 
+def launch_parts(*parts) -> list:
+    """The ``--dist-child`` arguments of several phases' parts run one after
+    another in one launch (one start-up of the ranks): ``NAME OUT [ARGS]``
+    each, joined by ``+``."""
+    out = []
+    for part in parts:
+        out += (["+"] if out else []) + [str(a) for a in part]
+    return out
+
+
 def dist_child(argv):
-    """A rank of a launched phase: ``--dist-child NAME OUT [ARGS]``."""
-    name, *rest = argv
-    {"slice_dist": child_slice_dist, "small_reference_dist": child_small_reference_dist}[name](
-        *rest)
+    """A rank of a launched phase: ``--dist-child NAME OUT [ARGS] [+ NAME OUT
+    [ARGS] ...]``, the parts in order."""
+    children = {"slice_dist": child_slice_dist,
+                "small_reference_dist": child_small_reference_dist,
+                "slice_spatial": child_slice_spatial}
+    part = []
+    for a in [*argv, "+"]:
+        if a != "+":
+            part.append(a)
+            continue
+        name, *rest = part
+        children[name](*rest)
+        part = []
 
 
 def fcos_entry(nms) -> dict:
@@ -3507,7 +3822,7 @@ def main():
     backbones = phase_slice_backbones(smi)
     launches_obb_rcnn = phase_small_reference_backbones()
     phase_eval()
-    phase_slice_train(smi)
+    train = phase_slice_train(smi)
     phase_small_reference_train()
     launches_train = phase_train_loop()
 
@@ -3524,7 +3839,10 @@ def main():
         phase_small_reference_fleet()
         phase_project_masks(work)
         dist = phase_slice_dist(work, smi)
-        dist_ref = phase_small_reference_dist(work)
+        sp_out = prepare_slice_spatial(work)
+        # slice_spatial's ranks run in small_reference_dist's launch
+        dist_ref = phase_small_reference_dist(work, also=[("slice_spatial", sp_out, "gloo")])
+        spatial = phase_slice_spatial(work, smi, sp_out, one_cell=train["fcos_aabb"])
         pipe = phase_pipeline(work, smi)
         legacy = phase_slice_legacy(smi)
         phase_utils(work, smi)
@@ -3547,6 +3865,7 @@ def main():
             "fcos_aabb_swin_s", "rcnn_resnet")},
         "launches_dist_train_loop": {k: dist["launches_dist_train_loop"][k] for k in (
             "fcos_aabb", "fcos_aabb_resume")},
+        "launches_spatial_train_loop": spatial["cli"]["launches"]["nms_boxes"],
         "launches_pipeline": pipe["launches"]["nms_boxes"], "k_pipeline": pipe["nms_k"],
         **fcos_entry(fcos["aabb"]["nms"]),
     }, {
@@ -3613,8 +3932,29 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
+def main_spatial():
+    """``--only slice_spatial``: the environment, the kernels' build and
+    ``slice_spatial`` over every visible card (2 ranks over gloo on one)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    import instance_nerf_tpu_torch  # noqa: F401  (absent: ImportError, exit 1)
+
+    smi = phase_env()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        phase_slice_spatial(work, smi)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
         dist_child(sys.argv[2:])
+    elif sys.argv[1:] == ["--only", "slice_spatial"]:
+        main_spatial()
     else:
         main()

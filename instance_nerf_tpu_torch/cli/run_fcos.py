@@ -23,6 +23,10 @@ checkpoint directory of the port or a flax params ``.npz``.
     # RPN and RCNN CLIs launch the same way); --device cpu trains over gloo
     python -m torch.distributed.run --nproc_per_node 4 -m instance_nerf_tpu_torch.cli.run_fcos \\
         --mode train --features_path D/features ... --save_path OUT
+    # each scene's voxel W axis split over 2 ranks (the mesh's spatial axis,
+    # ``parallel/spatial.py``), the batch over the other 2
+    python -m torch.distributed.run --nproc_per_node 4 -m instance_nerf_tpu_torch.cli.run_fcos \\
+        --mode train --n_spatial 2 --features_path D/features ... --save_path OUT
 """
 from __future__ import annotations
 
@@ -90,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_voxel_scores", action="store_true")
     p.add_argument("--filter", choices=["none", "tp", "fp"], default="none")
     p.add_argument("--filter_threshold", type=float, default=0.7)
-    p.add_argument("--n_spatial", type=int, default=1)
+    p.add_argument("--n_spatial", type=int, default=1,
+                   help="ranks of torch.distributed.run that split each scene's W axis")
     p.add_argument("--max_gt", type=int, default=64)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)

@@ -1,9 +1,9 @@
 """On-disk dataset loading + fixed-shape batching (host-side numpy): the
 port's copy of ``instance_nerf_tpu.data.datasets``.
 
-Two dependencies differ: density -> alpha is the numpy formula alone (the
-JAX package may take a native build compiled with ``-ffast-math``, so grids
-agree to about 1e-6), and OBB rois become AABBs through the port's
+Two dependencies are the port's own: density -> alpha goes through the
+port's build of the native library (``data/native.py``, numpy without a
+toolchain), and OBB rois become AABBs through the port's
 ``ops/boxes.py:obb2hbb_3d`` on a CPU tensor.
 
 Capability parity with ``nerf_rcnn/datasets.py``: the reference's on-disk
@@ -29,6 +29,7 @@ from typing import Sequence
 
 import numpy as np
 
+from instance_nerf_tpu_torch.data import native
 from instance_nerf_tpu_torch.data.augment import augment_rpn_inputs, draw_augment
 
 # 3D-FRONT NYU40 subset; remapped to 1..10, 0 = background
@@ -39,15 +40,14 @@ FRONT3D_CLASS_MAP = {cid: i + 1 for i, cid in enumerate(FRONT3D_CLASS_IDS)}
 
 
 def ngp_density_to_alpha(density: np.ndarray) -> np.ndarray:
-    """instant-ngp σ -> alpha (ref: datasets.py:865-866), in numpy."""
-    sigma = np.ascontiguousarray(density, np.float32)
-    return np.clip(1.0 - np.exp(-np.exp(sigma) / 100.0), 0.0, 1.0)
+    """instant-ngp σ -> alpha (ref: datasets.py:865-866), through the native
+    library (``data/native.py``)."""
+    return native.density_to_alpha(density, "ngp")
 
 
 def ddp_nerf_density_to_alpha(density: np.ndarray) -> np.ndarray:
     """dense-depth-priors (ScanNet) σ -> alpha (ref: datasets.py:869-872)."""
-    sigma = np.ascontiguousarray(density, np.float32)
-    return np.clip(1.0 - np.exp(-np.clip(sigma, 0, None) / 100.0), 0.0, 1.0)
+    return native.density_to_alpha(density, "ddp_nerf")
 
 
 DENSITY_FNS = {"ngp": ngp_density_to_alpha, "ddp_nerf": ddp_nerf_density_to_alpha}

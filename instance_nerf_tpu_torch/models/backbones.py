@@ -8,6 +8,10 @@ for the backbones ``build_backbone`` returns. Every backbone exposes
 ``out_channels``. Module names are flax's (``ConvBlock_0``, ``stem``,
 ``layer{i}_block{b}``, ``lat_i``, ...), so ``convert.py`` maps a flax
 params tree onto them.
+
+``forward(x, layout)`` with a W layout (``parallel/spatial.py``) runs on
+this rank's rows of a grid split over the mesh's ``sp`` ranks and returns
+(levels, the levels' layouts).
 """
 from __future__ import annotations
 
@@ -24,6 +28,10 @@ from instance_nerf_tpu_torch.models.layers import (
     upsample_nearest_to,
 )
 from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN, swin_config
+
+def _strided(layout, stride: int):
+    return None if layout is None else layout.strided(stride)
+
 
 # "M" = maxpool, "F" = stage boundary (feature tap)
 VGG_CFGS = {
@@ -72,22 +80,31 @@ class VGG_FPN(nn.Module):
                 li, c = li + 1, v
         self.fpn = FPN(tap_channels[-4:], out_channels, num_outs=4, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, layout=None):
         x_ds = None
         if self.conv_at_start:
-            x = self.start_conv2(self.start_conv1(x))
-            x_ds = self.ds_proj(self.ds_conv2(self.ds_conv1(x)))
-        x = self.stem(x)
+            x = self.start_conv2(self.start_conv1(x, layout), layout)
+            half = _strided(layout, 2)
+            x_ds = self.ds_proj(self.ds_conv2(self.ds_conv1(x, layout), half),
+                                _strided(half, 2))
+        x = self.stem(x, layout)
+        layout = _strided(layout, self.stem.conv.stride)
         if self.input_size >= 160:
-            x = max_pool_3d(x, window=3, stride=2)
-        features = []
+            x = max_pool_3d(x, window=3, stride=2, layout=layout)
+            layout = _strided(layout, 2)
+        features, layouts = [], []
         for stage in self.plan:
             for kind, name in stage:
-                x = max_pool_3d(x, 2, 2) if kind == "pool" else getattr(self, name)(x)
+                if kind == "pool":
+                    x = max_pool_3d(x, 2, 2, layout=layout)
+                    layout = _strided(layout, 2)
+                else:
+                    x = getattr(self, name)(x, layout)
             features.append(x)
+            layouts.append(layout)
         if x_ds is not None:
             features[0] = features[0] + x_ds
-        return self.fpn(features[-4:])
+        return self.fpn(features[-4:], None if layout is None else layouts[-4:])
 
 
 class Bottleneck(nn.Module):
@@ -105,11 +122,12 @@ class Bottleneck(nn.Module):
         self.downsample = (ConvBlock(in_ch, out_ch, kernel=1, stride=stride, use_relu=False,
                                      dtype=dtype)
                            if stride != 1 or in_ch != out_ch else None)
-        self.out_ch = out_ch
+        self.out_ch, self.stride = out_ch, stride
 
-    def forward(self, x):
-        y = self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(x)))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, layout=None):
+        out = _strided(layout, self.stride)
+        y = self.ConvBlock_2(self.ConvBlock_1(self.ConvBlock_0(x, layout), out), out)
+        residual = x if self.downsample is None else self.downsample(x, layout)
         return F.relu(y + residual)
 
 
@@ -129,13 +147,33 @@ def _resnet_layers(module: nn.Module, in_ch: int, base: int, layers: Sequence[in
     return widths
 
 
-def _run_layers(module: nn.Module, x, layers: Sequence[int]):
-    outs = []
+def _run_layers(module: nn.Module, x, layers: Sequence[int], layout=None):
+    """Each stage's output and its W layout."""
+    outs, layouts = [], []
     for i, depth in enumerate(layers):
         for b in range(depth):
-            x = getattr(module, f"layer{i}_block{b}")(x)
+            block = getattr(module, f"layer{i}_block{b}")
+            x = block(x, layout)
+            layout = _strided(layout, block.stride)
         outs.append(x)
-    return outs
+        layouts.append(layout)
+    return outs, layouts
+
+
+def _top_down(module: nn.Module, c_out, lays, top_name: str, lat_offset: int):
+    """A ResNet-FPN's pyramid: ``top_name`` on the last stage, then per stage
+    ``i`` from the top the upsampled level above plus ``lat_{i + lat_offset}``,
+    through ``smooth_i``. Returns the levels finest first (and their layouts
+    with a W layout)."""
+    p_out, p_lay = [getattr(module, top_name)(c_out[-1], lays[-1])], [lays[-1]]
+    for i in range(len(c_out) - 1):
+        lay = lays[-2 - i]
+        lat_i = getattr(module, f"lat_{i + lat_offset}")(c_out[-2 - i], lay)
+        p = upsample_nearest_to(p_out[-1], lat_i.shape[1:4], p_lay[-1], lay) + lat_i
+        p_out.append(getattr(module, f"smooth_{i}")(p, lay))
+        p_lay.append(lay)
+    out = tuple(reversed(p_out))
+    return out if lays[0] is None else (out, tuple(reversed(p_lay)))
 
 
 class ResNet_FPN_256(nn.Module):
@@ -158,17 +196,14 @@ class ResNet_FPN_256(nn.Module):
                             Conv3d(widths[-2 - i], out_channels, 1, dtype=dtype))
             self.add_module(f"smooth_{i}", Conv3d(out_channels, out_channels, 3, dtype=dtype))
 
-    def forward(self, x):
-        x = self.stem(x)
+    def forward(self, x, layout=None):
+        x = self.stem(x, layout)
+        layout = _strided(layout, 2)
         if self.is_max_pool:
-            x = max_pool_3d(x, window=3, stride=2)
-        c_out = _run_layers(self, x, self.layers)
-        p_out = [self.lat_0(c_out[-1])]
-        for i in range(len(self.layers) - 1):
-            lat = getattr(self, f"lat_{i + 1}")(c_out[-2 - i])
-            p = upsample_nearest_to(p_out[i], lat.shape[1:4]) + lat
-            p_out.append(getattr(self, f"smooth_{i}")(p))
-        return tuple(reversed(p_out))
+            x = max_pool_3d(x, window=3, stride=2, layout=layout)
+            layout = _strided(layout, 2)
+        c_out, lays = _run_layers(self, x, self.layers, layout)
+        return _top_down(self, c_out, lays, "lat_0", 1)
 
 
 class ResNet_FPN_64(nn.Module):
@@ -187,14 +222,9 @@ class ResNet_FPN_64(nn.Module):
             self.add_module(f"lat_{i}", Conv3d(widths[-2 - i], out_channels, 1, dtype=dtype))
             self.add_module(f"smooth_{i}", Conv3d(out_channels, out_channels, 3, dtype=dtype))
 
-    def forward(self, x):
-        c_out = _run_layers(self, self.stem(x), self.layers)
-        p_out = [self.top(c_out[-1])]
-        for i in range(len(self.layers) - 1):
-            lat = getattr(self, f"lat_{i}")(c_out[-2 - i])
-            p = upsample_nearest_to(p_out[-1], lat.shape[1:4]) + lat
-            p_out.append(getattr(self, f"smooth_{i}")(p))
-        return tuple(reversed(p_out))
+    def forward(self, x, layout=None):
+        c_out, lays = _run_layers(self, self.stem(x, layout), self.layers, layout)
+        return _top_down(self, c_out, lays, "top", 0)
 
 
 class ResNetSimplified(nn.Module):
@@ -213,14 +243,16 @@ class ResNetSimplified(nn.Module):
             self.add_module(f"res{i}_b", ConvBlock(out_channels, out_channels, use_relu=False,
                                                    dtype=dtype))
 
-    def forward(self, x):
-        x = self.stem(x)
+    def forward(self, x, layout=None):
+        x = self.stem(x, layout)
+        layout = _strided(layout, self.stem.conv.stride)
         if self.downsample:
-            x = max_pool_3d(x, window=3, stride=2)
+            x = max_pool_3d(x, window=3, stride=2, layout=layout)
+            layout = _strided(layout, 2)
         for i in range(self.num_residuals):
-            y = getattr(self, f"res{i}_b")(getattr(self, f"res{i}_a")(x))
+            y = getattr(self, f"res{i}_b")(getattr(self, f"res{i}_a")(x, layout), layout)
             x = F.relu(x + y)
-        return (x,)
+        return (x,) if layout is None else ((x,), (layout,))
 
 
 def build_backbone(backbone_type: str, input_size: int = 160,

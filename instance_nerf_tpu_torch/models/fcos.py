@@ -8,6 +8,11 @@ bias. Locations are the voxel centers of every level, concatenated in the
 JAX package's order (level-major, then ``(w, l, h)`` row-major), and the
 head outputs are flattened the same way.
 
+Given the grid's W layout (``parallel/spatial.py``), the backbone and the
+towers run on this rank's rows of every level (the towers' GroupNorm
+statistics summed over the ``sp`` ranks) and the locations are this rank's,
+at their global coordinates.
+
 ``fcos_postprocess``: per level a stable top-n over the whole location
 vector (ties to the lower index, as ``lax.top_k``), decode, clip (AABB),
 small-box mask, one NMS over all levels (B1 for AABBs, the rotated IoU and
@@ -67,20 +72,21 @@ class FCOSHead(nn.Module):
         self.centerness = Conv3d(in_ch, 1, 3, dtype=dtype)
         self.scales = nn.Parameter(torch.ones(num_levels))
 
-    def tower(self, branch: str, x: torch.Tensor) -> torch.Tensor:
+    def tower(self, branch: str, x: torch.Tensor, layout=None) -> torch.Tensor:
         for i in range(self.num_convs):
             conv = getattr(self, f"{branch}_tower_{i}")
-            x = F.relu(getattr(self, f"{branch}_gn_{i}")(conv(x)))
+            x = F.relu(getattr(self, f"{branch}_gn_{i}")(conv(x, layout), layout))
         return x
 
-    def forward(self, features: Sequence[torch.Tensor], train: bool = False):
+    def forward(self, features: Sequence[torch.Tensor], train: bool = False, layouts=None):
         logits, bbox_reg, ctr = [], [], []
         for lvl, feat in enumerate(features):
-            c = self.tower("cls", feat)
-            b = self.tower("bbox", feat)
-            logits.append(self.cls_logits(c)[..., 0])
-            ctr.append(self.centerness(b if self.centerness_on_reg else c)[..., 0])
-            pred = self.bbox_pred(b).to(torch.float32) * self.scales[lvl]
+            lay = None if layouts is None else layouts[lvl]
+            c = self.tower("cls", feat, lay)
+            b = self.tower("bbox", feat, lay)
+            logits.append(self.cls_logits(c, lay)[..., 0])
+            ctr.append(self.centerness(b if self.centerness_on_reg else c, lay)[..., 0])
+            pred = self.bbox_pred(b, lay).to(torch.float32) * self.scales[lvl]
             if self.norm_reg_targets:
                 dist = F.relu(pred[..., :6])
                 if not train:
@@ -116,12 +122,15 @@ class LevelInfo(NamedTuple):
 
 
 def compute_locations(feature_shapes: Sequence[tuple[int, int, int]],
-                      fpn_strides: Sequence[int], device=None) -> LevelInfo:
-    """Per-level voxel-center grids, concatenated."""
+                      fpn_strides: Sequence[int], device=None,
+                      w_offsets: Sequence[int] | None = None) -> LevelInfo:
+    """Per-level voxel-center grids, concatenated. ``w_offsets``: each
+    level's first global W row (a rank's block of a W-split level)."""
     locs, lids, strs, sois = [], [], [], []
+    offsets = w_offsets or (0,) * len(feature_shapes)
     for lvl, ((w, l, h), stride) in enumerate(zip(feature_shapes, fpn_strides)):
-        axes = [torch.arange(n, dtype=torch.float32, device=device) * stride + stride // 2
-                for n in (w, l, h)]
+        axes = [(torch.arange(n, dtype=torch.float32, device=device) + o) * stride
+                + stride // 2 for n, o in ((w, offsets[lvl]), (l, 0), (h, 0))]
         gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
         pts = torch.stack([gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)], dim=-1)
         r = pts.shape[0]
@@ -555,27 +564,44 @@ class FCOSOverNeRF(nn.Module):
                              dtype=dtype)
         self._info = {}
 
-    def features(self, grids):
-        return list(self.backbone(grids))[:len(self.fpn_strides)]
+    def features(self, grids, layout=None):
+        """The levels; with the grid's W ``layout``, (levels, their layouts)."""
+        n = len(self.fpn_strides)
+        if layout is None:
+            return list(self.backbone(grids))[:n]
+        feats, layouts = self.backbone(grids, layout=layout)
+        return list(feats)[:n], list(layouts)[:n]
 
-    def level_info(self, features) -> LevelInfo:
+    def level_info(self, features, layouts=None) -> LevelInfo:
         shapes = tuple(tuple(f.shape[1:4]) for f in features)
-        key = (shapes, str(features[0].device))
+        offsets = tuple(0 if lay is None else lay.lo for lay in layouts or ())
+        key = (shapes, offsets, str(features[0].device))
         if key not in self._info:
             self._info[key] = compute_locations(shapes, self.fpn_strides,
-                                                device=features[0].device)
+                                                device=features[0].device,
+                                                w_offsets=offsets or None)
         return self._info[key]
 
-    def head_outputs(self, features, train: bool = False):
+    def head_outputs(self, features, train: bool = False, layouts=None):
         """Flattened logits ``(N, R)``, regression ``(N, R, D)`` and
         centerness ``(N, R)``."""
-        logits, box_reg, ctr = self.head(features, train=train)
+        logits, box_reg, ctr = self.head(features, train=train, layouts=layouts)
         n = features[0].shape[0]
-        return (torch.cat([x.reshape(n, -1) for x in logits], 1),
-                torch.cat([x.reshape(n, -1, x.shape[-1]) for x in box_reg], 1),
-                torch.cat([x.reshape(n, -1) for x in ctr], 1))
 
-    def forward(self, grids, train: bool = False):
-        features = self.features(grids)
-        logits, reg, ctr = self.head_outputs(features, train=train)
-        return self.level_info(features), logits, reg, ctr, features
+        def flat(x, *tail):  # explicit sizes: a rank's level may hold no rows
+            return x.reshape(n, math.prod(x.shape[1:4]), *tail)
+
+        return (torch.cat([flat(x) for x in logits], 1),
+                torch.cat([flat(x, x.shape[-1]) for x in box_reg], 1),
+                torch.cat([flat(x) for x in ctr], 1))
+
+    def forward(self, grids, train: bool = False, layout=None):
+        """(level info, logits, regression, centerness, features); with the
+        grid's W ``layout`` all of them this rank's."""
+        layouts = None
+        if layout is None:
+            features = self.features(grids)
+        else:
+            features, layouts = self.features(grids, layout)
+        logits, reg, ctr = self.head_outputs(features, train=train, layouts=layouts)
+        return self.level_info(features, layouts), logits, reg, ctr, features

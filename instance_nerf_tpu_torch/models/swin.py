@@ -16,6 +16,16 @@ position index and the shift mask are host constants, built once per
 
 Stochastic depth (``drop_path``) acts only with ``deterministic=False``;
 its per-example keep mask is drawn from the explicit ``generator``.
+
+With a W layout (``parallel/spatial.py``) the grid's W axis is split over
+the mesh's ``sp`` ranks. The patch embed and the FPN are the layers' split
+convs; the window attention gathers whole windows of the cyclically
+shifted, padded global W (``blocks`` of the windows, so a rank's windows
+are contiguous), the wrap from the last row to the first included, takes
+the shift mask's rows of those windows, and sends the outputs back to the
+rows' owners un-shifted; patch merging fetches its input's pairs of rows.
+The window size, the pad and "no shift where the window covers the axis"
+follow the global W.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from instance_nerf_tpu_torch.models.fpn import FPN
 from instance_nerf_tpu_torch.models.layers import Conv3d, LayerNorm, Linear
+from instance_nerf_tpu_torch.parallel.spatial import blocks, exchange, wrapped
 
 SWIN_CONFIGS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -119,20 +130,35 @@ class ShiftedWindowAttention3D(nn.Module):
         self.rel_pos_bias_table = nn.Parameter(
             torch.zeros((2 * w[0] - 1) * (2 * w[1] - 1) * (2 * w[2] - 1), num_heads))
 
-    def forward(self, x):
+    def forward(self, x, layout=None):
         b, w_, l_, h_, c = x.shape
         win, heads = self.window, self.num_heads
-        # pad to window multiples (F.pad lists the last dim first)
-        x = F.pad(x, (0, 0, 0, (-h_) % win[2], 0, (-l_) % win[1], 0, (-w_) % win[0]))
-        W, L, H = x.shape[1:4]
+        if layout is not None:
+            w_ = layout.size
+        # pad to window multiples (F.pad lists the last dim first); a split
+        # W is padded by the fetch below, past the global end only
+        x = F.pad(x, (0, 0, 0, (-h_) % win[2], 0, (-l_) % win[1],
+                      0, 0 if layout is not None else (-w_) % win[0]))
+        W = w_ + (-w_) % win[0]
+        L, H = x.shape[2:4]
         # no shift along an axis the window covers whole
-        shift = tuple(0 if win[i] >= x.shape[1 + i] else self.shift[i] for i in range(3))
+        shift = tuple(0 if win[i] >= (W, L, H)[i] else self.shift[i] for i in range(3))
         shifted = sum(shift) > 0
-        if shifted:
+        wlo, whi = 0, W // win[0]  # this rank's windows along W
+        if layout is not None:
+            # whole windows of the shifted axis: window row j is global row
+            # (j + shift) mod W, zero at and past the global end
+            wins = blocks(W // win[0], layout.parts)
+            wlo, whi = wins[layout.index]
+            x = exchange(x, layout, [wrapped(lo * win[0] + shift[0], hi * win[0] + shift[0], W)
+                                     for lo, hi in wins])
+            x = torch.roll(x, (-shift[1], -shift[2]), dims=(2, 3)) if shifted else x
+        elif shifted:
             x = torch.roll(x, (-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
-        nw = (W // win[0]) * (L // win[1]) * (H // win[2])
+        nww = whi - wlo
+        nw = nww * (L // win[1]) * (H // win[2])
         n = win[0] * win[1] * win[2]
-        xw = x.reshape(b, W // win[0], win[0], L // win[1], win[1], H // win[2], win[2], c)
+        xw = x.reshape(b, nww, win[0], L // win[1], win[1], H // win[2], win[2], c)
         xw = xw.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b * nw, n, c)
 
         qkv = self.qkv(xw).reshape(b * nw, n, 3, heads, c // heads)
@@ -144,14 +170,23 @@ class ShiftedWindowAttention3D(nn.Module):
         attn = attn + bias.permute(2, 0, 1)[None]
         if shifted:
             mask = _shift_mask((W, L, H), win, shift, x.device)
+            # the rows of this rank's windows (the mask is W-window-major)
+            mask = mask.reshape(W // win[0], -1, n, n)[wlo:whi].reshape(nw, n, n)
             attn = attn.reshape(b, nw, heads, n, n) + mask[None, :, None]
             attn = attn.reshape(b * nw, heads, n, n)
         attn = torch.softmax(attn, dim=-1)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v.to(attn.dtype)).reshape(b * nw, n, c)
         out = self.proj(out)
 
-        out = out.reshape(b, W // win[0], L // win[1], H // win[2], win[0], win[1], win[2], c)
-        out = out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, W, L, H, c)
+        out = out.reshape(b, nww, L // win[1], H // win[2], win[0], win[1], win[2], c)
+        out = out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, nww * win[0], L, H, c)
+        if layout is not None:
+            out = torch.roll(out, shift[1:], dims=(2, 3)) if shifted else out
+            # global row i is window row (i - shift) mod W
+            out = exchange(out, layout, [wrapped(lo - shift[0], hi - shift[0], W)
+                                         for lo, hi in layout.owned],
+                           owned=[(lo * win[0], hi * win[0]) for lo, hi in wins], size=W)
+            return out[:, :, :l_, :h_]
         if shifted:
             out = torch.roll(out, shift, dims=(1, 2, 3))
         return out[:, :w_, :l_, :h_]
@@ -173,8 +208,8 @@ class SwinBlock(nn.Module):
         self.Dense_0 = Linear(dim, hidden, dtype)
         self.Dense_1 = Linear(hidden, dim, dtype)
 
-    def forward(self, x, deterministic: bool = True, generator=None):
-        h = self.attn(self.LayerNorm_0(x))
+    def forward(self, x, deterministic: bool = True, generator=None, layout=None):
+        h = self.attn(self.LayerNorm_0(x), layout)
         x = x + _drop_path(h, self.drop_path, deterministic, generator)
         h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
         h = self.Dense_1(h)
@@ -190,8 +225,13 @@ class PatchMerging3D(nn.Module):
         self.LayerNorm_0 = LayerNorm(8 * in_dim, dtype=dtype)
         self.Dense_0 = Linear(8 * in_dim, out_dim, dtype, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, layout=None):
         _, w, l, h, _ = x.shape
+        if layout is not None:
+            # global rows 2i and 2i + 1 of each output row i, zero past the end
+            x = exchange(x, layout, [((2 * lo, 2 * hi),) if hi > lo else ()
+                                     for lo, hi in layout.strided(2).owned])
+            w = 0
         x = F.pad(x, (0, 0, 0, h % 2, 0, l % 2, 0, w % 2))
         parts = [x[:, dx::2, dy::2, dz::2, :]
                  for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
@@ -232,13 +272,17 @@ class SwinTransformerFPN(nn.Module):
             prev = dim
         self.fpn = FPN(dims, out_channels, num_outs=4, dtype=dtype)
 
-    def forward(self, x, deterministic: bool = True, generator=None):
-        x = self.LayerNorm_0(self.patch_embed(x))
-        features = []
+    def forward(self, x, deterministic: bool = True, generator=None, layout=None):
+        x = self.LayerNorm_0(self.patch_embed(x, layout))
+        if layout is not None:
+            layout = layout.strided(self.patch_embed.stride)
+        features, layouts = [], []
         for i, depth in enumerate(self.depths):
             if i > 0:
-                x = getattr(self, f"merge_{i}")(x)
+                x = getattr(self, f"merge_{i}")(x, layout)
+                layout = None if layout is None else layout.strided(2)
             for j in range(depth):
-                x = getattr(self, f"stage{i}_block{j}")(x, deterministic, generator)
+                x = getattr(self, f"stage{i}_block{j}")(x, deterministic, generator, layout)
             features.append(x)
-        return self.fpn(features)
+            layouts.append(layout)
+        return self.fpn(features, None if layout is None else layouts)

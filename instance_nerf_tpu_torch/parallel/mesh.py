@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from instance_nerf_tpu_torch.parallel.spatial import split_size
+
 log = logging.getLogger(__name__)
 
 # elements (f32) of one all-reduce bucket
@@ -85,7 +87,8 @@ class Mesh:
     layout are idle (the JAX mesh's unused devices). ``data_group`` holds
     the ranks of this rank's ``sp`` coordinate, ``sp_group`` those of its
     ``(dcn, data)`` coordinates (None on an idle rank, or without a process
-    group)."""
+    group). ``halo`` counts the bytes and exchanges of this rank's halos on
+    the ``sp`` axis (``parallel/spatial.py``)."""
 
     def __init__(self, n_dcn: int, n_data: int, n_spatial: int, rank: int = 0,
                  world: int = 1, device=None):
@@ -97,6 +100,7 @@ class Mesh:
         self.active = rank < self.used
         self.coord = self.coords[rank] if self.active else None
         self.data_group = self.sp_group = None
+        self.halo = {"bytes": 0, "exchanges": 0}
         if distributed() and world > 1:
             # every rank creates every group, in the same order
             for sp in range(n_spatial):
@@ -109,6 +113,10 @@ class Mesh:
                                         if c[:2] == (a, b)])
                     if self.active and self.coord[:2] == (a, b):
                         self.sp_group = g
+            if self.sp_group is not None and n_spatial > 1:
+                # NCCL's point-to-point calls (the spatial axis's halos) need
+                # a collective on their group first
+                dist.all_reduce(torch.zeros(1, device=self.device), group=self.sp_group)
 
     @property
     def data_size(self) -> int:
@@ -185,8 +193,8 @@ def _leave() -> None:
 
 def launched_mesh(batch_size: int, device="cuda", n_spatial: int = 1) -> Mesh | None:
     """The detector trainers' mesh under ``torchrun`` (None outside it), as
-    the JAX trainers build theirs: the data axis over
-    ``data_axis_size(batch_size, world // n_spatial)`` ranks."""
+    the JAX trainers build theirs: ``min(n_spatial, world)`` spatial ranks
+    and the data axis over ``data_axis_size(batch_size, world // sp)``."""
     if not under_launcher():
         return None
     world = launched_world()
@@ -204,8 +212,9 @@ def local_rows(mesh: Mesh, tree):
     """The rank's part of a host batch, as the JAX ``shard_batch`` places it:
     an array whose leading dimension the data size divides gives its
     contiguous block along ``dcn x data`` (a 5-D voxel grid its block of W
-    over ``sp`` too); everything else is replicated. An idle rank gets
-    empty blocks."""
+    over ``sp`` too, which raises ``ValueError`` where ``sp`` does not divide
+    W, as JAX's ``device_put`` on ``grid_sharding`` does); everything else is
+    replicated. An idle rank gets empty blocks."""
     n = mesh.data_size
 
     def take(x):
@@ -219,7 +228,7 @@ def local_rows(mesh: Mesh, tree):
         lo = mesh.data_index * per if mesh.active else 0
         x = x[lo:lo + per] if mesh.active else x[:0]
         if len(x.shape) >= 5 and mesh.n_spatial > 1:
-            w = x.shape[1] // mesh.n_spatial
+            w = split_size(x.shape[1], mesh.n_spatial)
             x = x[:, mesh.sp_index * w:(mesh.sp_index + 1) * w]
         return x
 

@@ -24,6 +24,14 @@ over the ranks in the forward, and ``apply_step`` SUMs the gradients and
 the metrics over the ranks in flat buckets (the span ``allreduce``) before
 the clip, so every rank clips the global batch's gradient by its global
 norm and takes the same update.
+
+An FCOS step given the grid's W ``layout`` (``parallel/spatial.py``) is one
+``sp`` rank's part of a step over the mesh's spatial axis too: its grids
+are its rows of each scene's W, the forward exchanges halos with the other
+``sp`` ranks and its loss covers its own locations, so the same world SUM
+of the gradients gives the global batch's. With ``remat`` the backward's
+recompute replays the exchanges; it recomputes the whole forward (no early
+stop), so every rank replays all of them in the same order.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from instance_nerf_tpu_torch.models.fcos import fcos_loss, padding_mask
 from instance_nerf_tpu_torch.models.rpn import anchor_padding_mask, rpn_loss
@@ -199,16 +207,19 @@ def fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, reg_loss_weight: fl
                 center_sampling_radius: float = 1.5, iou_loss_type: str = "iou",
                 use_obb: bool = False, use_additional_l1_loss: bool = False,
                 proj2d_loss_weight: float = 0.0, remat: bool = False, stage=no_stage,
-                shard=None):
+                shard=None, layout=None):
     """One FCOS forward and loss: (total, losses). ``remat`` recomputes the
     forward in the backward (``torch.utils.checkpoint``); ``shard``: these
-    are a data-parallel step's rows."""
+    are a data-parallel step's rows; ``layout``: the grids' W layout on the
+    mesh's spatial axis."""
     with stage("forward"):
         if remat:
-            info, logits, reg, ctr, _ = checkpoint(lambda g: model(g, train=True), grids,
-                                                   use_reentrant=False)
+            with set_checkpoint_early_stop(layout is None):
+                info, logits, reg, ctr, _ = checkpoint(
+                    lambda g: model(g, train=True, layout=layout), grids,
+                    use_reentrant=False)
         else:
-            info, logits, reg, ctr, _ = model(grids, train=True)
+            info, logits, reg, ctr, _ = model(grids, train=True, layout=layout)
     with stage("loss"):
         losses = fcos_loss(
             info, logits, reg, ctr, gt_boxes, gt_mask, pad_mask=padding_mask(info, grid_sizes),
@@ -226,17 +237,19 @@ def make_fcos_train_step(model, reg_loss_weight: float = 1.0,
                          use_obb: bool = False, use_additional_l1_loss: bool = False,
                          proj2d_loss_weight: float = 0.0, remat: bool = False,
                          stage=no_stage):
-    """``step(state, grids, grid_sizes, gt_boxes, gt_mask, shard=None) ->
-    (state, metrics)``: the losses, ``total`` and ``num_pos``."""
+    """``step(state, grids, grid_sizes, gt_boxes, gt_mask, shard=None,
+    layout=None) -> (state, metrics)``: the losses, ``total`` and
+    ``num_pos``."""
     kw = dict(reg_loss_weight=reg_loss_weight, center_sampling_radius=center_sampling_radius,
               iou_loss_type=iou_loss_type, use_obb=use_obb,
               use_additional_l1_loss=use_additional_l1_loss,
               proj2d_loss_weight=proj2d_loss_weight, remat=remat, stage=stage)
 
-    def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask, shard=None):
+    def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask, shard=None,
+             layout=None):
         model.zero_grad(set_to_none=True)
         total, losses = fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, shard=shard,
-                                    **kw)
+                                    layout=layout, **kw)
         return apply_step(state, total, losses, stage, shard)
 
     return step

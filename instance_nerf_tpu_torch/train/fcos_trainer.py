@@ -14,7 +14,14 @@ in OBB mode the rotated IoU of the valid candidates swept by kernel B2.
 Under ``torchrun`` (or given a ``mesh``) the trainer is one rank of a
 data-parallel step (``parallel/mesh.py``): each rank, bound to its own
 card, loads its rows of every global batch, the losses and gradients are
-summed over the ranks, and evals and checkpoints run on rank 0.
+summed over the ranks, and evals and checkpoints run on rank 0. With
+``n_spatial > 1`` the mesh has a spatial axis, as the JAX trainer builds
+it: ``min(n_spatial, world)`` ranks split each scene's W
+(``parallel/spatial.py``), and the data axis takes ``data_axis_size(batch,
+world // sp)`` of the rest. Each rank then takes its block of W of its
+scenes (on the card after ``device_augment``, whose flips and rotations
+need the whole grid), and the step exchanges halos over the ``sp`` ranks;
+rank 0's evals run ``predict_scene`` on the whole grid.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from instance_nerf_tpu_torch.models.fcos import (
     sigmoid,
 )
 from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
+from instance_nerf_tpu_torch.parallel.spatial import grid_layout, split_size
 from instance_nerf_tpu_torch.parallel.train_step import (
     TrainState,
     make_fcos_train_step,
@@ -67,8 +75,8 @@ log = logging.getLogger("fcos_trainer")
 
 @dataclass
 class FCOSConfig:
-    """The JAX package's ``FCOSConfig``. ``n_spatial > 1`` (a mesh's spatial
-    axis, the voxel W axis split over cards) raises: it comes with slice 7b."""
+    """The JAX package's ``FCOSConfig``. ``n_spatial > 1``: the mesh's spatial
+    axis, each scene's voxel W axis split over that many ranks."""
 
     # data
     features_path: str = ""
@@ -172,12 +180,9 @@ def init_fcos_params(model: FCOSOverNeRF, seed: int) -> None:
 class FCOSTrainer:
     def __init__(self, cfg: FCOSConfig | None = None, device="cuda", mesh=None):
         self.cfg = cfg = cfg or FCOSConfig()
-        if cfg.n_spatial > 1:
-            raise NotImplementedError("n_spatial > 1 (the voxel W axis split over cards, with "
-                                      "a halo exchange in every conv) comes with slice 7b "
-                                      "(ROADMAP queue A)")
         self.device = resolve_device(device)
-        self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device)
+        self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device,
+                                                                cfg.n_spatial)
         if self.mesh is not None:
             self.device = self.mesh.device
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
@@ -250,6 +255,14 @@ class FCOSTrainer:
             proj2d_loss_weight=cfg.proj2d_loss_weight, remat=cfg.remat,
             stage=stage or self._train_stage)
 
+    def grid_layout(self, size: int):
+        """The W layout of a train grid of W ``size`` on the mesh's spatial
+        axis (None without one); ``size`` must divide over it."""
+        layout = grid_layout(self.mesh, size, stage=self._train_stage)
+        if layout is not None:
+            split_size(size, layout.parts)
+        return layout
+
     def device_store(self, ds: RPNDataset) -> dict:
         """The split on the card, uploaded once a scene at a time: each scene
         padded to the resolution without augmentation, grids in bf16."""
@@ -306,6 +319,7 @@ class FCOSTrainer:
         pad_shape = (cfg.resolution,) * 3
         box_dim = 7 if cfg.rotated_bbox else 6
         shard = batch_shard(self.mesh, cfg.batch_size)
+        layout = self.grid_layout(cfg.resolution)
         loop_kw = {}
         if cfg.device_data:
             store = self.device_store(train_ds)
@@ -317,16 +331,19 @@ class FCOSTrainer:
                 draws = torch.rand((len(idx), 3), generator=gen, device=self.device)
                 if shard is not None:
                     idx, draws = shard.take(idx), shard.take(draws)
-                return self.store_batch(store, idx, draws)
+                g, *rest = self.store_batch(store, idx, draws)
+                return (g if layout is None else layout.take(g).contiguous(), *rest)
         else:
             def load(idx):
                 rows = None if shard is None else (shard.lo, shard.hi)
-                return device_batch(train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt,
-                                                   box_dim=box_dim, augment=True, rows=rows),
-                                    self.device)
+                b = train_ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim,
+                                   augment=True, rows=rows)
+                if layout is not None:
+                    b.grids = np.ascontiguousarray(b.grids[:, layout.lo:layout.hi])
+                return device_batch(b, self.device)
 
         def step(batch):
-            self.state, metrics = step_fn(self.state, *batch, shard=shard)
+            self.state, metrics = step_fn(self.state, *batch, shard=shard, layout=layout)
             return metrics
 
         def save(gstep, metrics):
@@ -353,10 +370,13 @@ class FCOSTrainer:
         shard = batch_shard(self.mesh, batch)
         if shard is not None:
             args = tuple(shard.take(a) for a in args)
+        layout = self.grid_layout(shape[0])
+        if layout is not None:
+            args = (layout.take(args[0]).contiguous(), *args[1:])
         step_fn = self.train_step_fn()
 
         def run():
-            self.state, metrics = step_fn(self.state, *args, shard=shard)
+            self.state, metrics = step_fn(self.state, *args, shard=shard, layout=layout)
             return metrics
 
         return run
@@ -376,7 +396,8 @@ class FCOSTrainer:
     def profile_train(self, reps=5, shape=(160, 160, 160), batch=4, warmup=2, top=12):
         """Where a train step's time goes (``train/timing.py:profile_ms``), by
         span: forward, loss (targets included), backward, allreduce (under a
-        mesh), optimizer."""
+        mesh), halo (on a spatial axis: the exchanges, forward and backward),
+        optimizer."""
         return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
                           reps=reps, warmup=warmup, top=top, watch=())
 

@@ -15,8 +15,9 @@ device-resident loops of the JAX trainers draw their batches otherwise
 
 Over a process group (``parallel/mesh.py``) every rank draws the same
 permutations and global batch indices and loads its own rows of each
-batch (the trainers' ``load``); logging, evals and checkpoints run on rank
-0 while the other ranks wait at a barrier.
+batch (the trainers' ``load``; on a spatial axis also its block of each
+grid's W); logging, evals and checkpoints run on rank 0 while the other
+ranks wait at a barrier.
 """
 from __future__ import annotations
 

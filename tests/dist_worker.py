@@ -24,25 +24,29 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def capture(tx):
+def capture(tx, update: bool = True, dtype=None):
     """Record the gradient list each optimizer step is given (the summed
-    one over a process group)."""
+    one over a process group), in ``dtype`` (default the gradients'); with
+    ``update=False`` the step stops there (no moments, no update)."""
     seen = []
     step = tx.step
 
     def wrapped(grads=None):
         g = grads if grads is not None else [
             p.grad if p.grad is not None else torch.zeros_like(p) for p in tx.params]
-        seen.append({n: x.detach().clone() for n, x in zip(tx.names, g)})
-        return step(grads)
+        seen.append({n: x.detach().to(dtype or x.dtype, copy=True)
+                     for n, x in zip(tx.names, g)})
+        return step(grads) if update else None
 
     tx.step = wrapped
     return seen
 
 
-def _trainer(kind, cfg, mesh, swin=None):
+def _trainer(kind, cfg, mesh, swin=None, resnet=None):
     """A detector trainer on the CPU; with ``swin`` (``SwinTransformerFPN``
-    keywords) its backbone is that Swin whatever ``backbone_type`` says."""
+    keywords) or ``resnet`` (``ResNet_FPN_256`` keywords) its backbone is
+    that one whatever ``backbone_type`` says."""
+    from instance_nerf_tpu_torch.models.backbones import ResNet_FPN_256
     from instance_nerf_tpu_torch.models.swin import SwinTransformerFPN
     from instance_nerf_tpu_torch.train import fcos_trainer, rcnn_trainer, rpn_trainer
 
@@ -53,26 +57,32 @@ def _trainer(kind, cfg, mesh, swin=None):
     build = module.build_backbone
     if swin is not None:
         module.build_backbone = lambda *a, **k: SwinTransformerFPN(**swin)
+    if resnet is not None:
+        module.build_backbone = lambda *a, **k: ResNet_FPN_256(**resnet)
     try:
         return cls(conf(**cfg), device="cpu", mesh=mesh)
     finally:
         module.build_backbone = build
 
 
-def detector_step(mesh, kind, cfg, params, batch, uniforms=None, dtype="float32", swin=None):
+def detector_step(mesh, kind, cfg, params, batch, uniforms=None, dtype="float32", swin=None,
+                  resnet=None, update=True, grads_dtype=None):
     """One train step of a detector trainer on the global ``batch`` (numpy
-    arrays) from ``params`` (a state dict, or the path of one): under a
-    process group the trainer builds its mesh as it does under ``torchrun``
-    (from ``cfg["batch_size"]``) and steps on this rank's rows; ``swin`` as
-    ``_trainer``'s. Returns (metrics, the gradients the optimizer was
-    given)."""
+    arrays) from ``params`` (a state dict, the path of one, or None for the
+    trainer's seeded init): under a process group the trainer builds its
+    mesh as it does under ``torchrun`` (from ``cfg["batch_size"]`` and
+    ``cfg["n_spatial"]``) and steps on this rank's rows (of the scenes, and
+    of W on a spatial axis); ``swin`` and ``resnet`` as ``_trainer``'s,
+    ``update`` and ``grads_dtype`` (a dtype's name) as ``capture``'s.
+    Returns (metrics, the gradients the optimizer was given)."""
     from instance_nerf_tpu_torch.parallel.mesh import batch_shard
 
     del mesh  # the trainer's own
-    tr = _trainer(kind, cfg, None, swin)
+    tr = _trainer(kind, cfg, None, swin, resnet)
     tr.init_state()
-    tr.model.load_state_dict(torch.load(params, weights_only=True) if isinstance(params, str)
-                             else params)
+    if params is not None:
+        tr.model.load_state_dict(torch.load(params, weights_only=True)
+                                 if isinstance(params, str) else params)
     args = [torch.from_numpy(np.asarray(a)) for a in batch]
     if dtype == "float64":
         tr.model.double()
@@ -85,7 +95,11 @@ def detector_step(mesh, kind, cfg, params, batch, uniforms=None, dtype="float32"
     if uniforms is not None:
         u = torch.from_numpy(np.asarray(uniforms))
         kw["uniforms"] = u if shard is None else shard.take(u)
-    seen = capture(tr.state.tx)
+    layout = tr.grid_layout(args[0].shape[1]) if kind == "fcos" else None
+    if layout is not None:
+        args[0] = layout.take(args[0]).contiguous()
+        kw["layout"] = layout
+    seen = capture(tr.state.tx, update, grads_dtype and getattr(torch, grads_dtype))
     _, metrics = tr.train_step_fn()(tr.state, *args, **kw)
     grads = seen[0]
     if shard is not None and torch.distributed.get_rank() != 0:

@@ -262,8 +262,8 @@ def test_rpn_cli_modes_of_later_slices_raise(toy_data):
     """The options that slice 5b brought now train at toy size on the CPU:
     the ResNet and Swin backbones and more than one step per dispatch; OBB
     RCNN builds its 8-delta head and its step raises where the JAX step
-    fails. Only the multi-card option (``--n_spatial > 1``) still raises,
-    naming slice 7."""
+    fails. The spatial axis (``--n_spatial > 1``) trains too: outside a
+    process group it is a mesh of one, ``sp = 1``, as JAX on one device."""
     from instance_nerf_tpu_torch.cli import run_fcos, run_rcnn, run_rpn
 
     root = toy_data["aabb"]
@@ -277,15 +277,16 @@ def test_rpn_cli_modes_of_later_slices_raise(toy_data):
     with pytest.raises(ValueError, match="8 box deltas against 6-wide targets"):
         run_rcnn.main(_toy_argv("run_rcnn", root) + ["--bbox_type", "obb",
                                                      "--backbone_type", "vgg_AF"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        run_fcos.main(_toy_argv("run_fcos", root) + ["--n_spatial", "2"])
+    out = _summary(run_fcos.main, _toy_argv("run_fcos", root) + ["--n_spatial", "2",
+                                                                 "--backbone_type", "vgg_AF"])
+    assert out["steps"] == 1 and np.isfinite(out["last"]["total"])
 
 
 def test_train_modes_of_later_slices_raise(toy_data):
     """OBB RCNN, ``steps_per_call > 1`` and the device-resident store
     ``device_data`` run in the trainers at toy size; the OBB sampler encodes
-    8 deltas; a mesh over several cards (``n_spatial > 1``) raises, naming
-    slice 7."""
+    8 deltas; ``n_spatial > 1`` builds, with no spatial axis outside a
+    process group (``sp = 1``)."""
     import torch as _torch
 
     from instance_nerf_tpu_torch.models.rcnn import select_training_samples
@@ -314,8 +315,8 @@ def test_train_modes_of_later_slices_raise(toy_data):
                                 _torch.ones((1, 1), dtype=_torch.int64),
                                 _torch.ones((1, 1), dtype=_torch.bool), box_dim=8)
     assert s.reg_targets.shape == (1, 2, 8) and bool(s.pos.all())
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        FCOSTrainer(FCOSConfig(n_spatial=2), device="cpu")
+    sp = FCOSTrainer(FCOSConfig(n_spatial=2), device="cpu")
+    assert sp.mesh is None and sp.grid_layout(160) is None
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
