@@ -175,7 +175,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and 3 rows split unevenly) against this process's one-process step
    (losses 1e-6, gradients 1e-5 of their max); ``run_fcos --n_spatial 2
    --mode train`` at 64^3, 2 epochs (B1 in rank 0's evals, one checkpoint
-   and ``best/``).
+   and ``best/``). Slice 7d, in the same ranks: the rotated anchor-RPN step
+   at the JAX defaults (``RPNConfig(rotated_bbox=True)``, VGG-EF, global
+   batch 4 at 200x200x130 padded to 224x224x160, bf16) on each layout
+   (halos in the backbone and the head's k3 convs; each gt's best anchor
+   taken over the ranks, the sampler on the labels gathered from every
+   rank): the same figures beside ``slice_train``'s ``rpn_rotated`` cell;
+   f64 RPN AABB and rotated steps (VGG-AF, 40x40x36 padded to 64^3) against
+   the one-process step: losses 1e-6, gradients 1e-5, and the sampled
+   positive and negative masks, the ranks' columns put back in the scene's
+   anchor order, equal to the one process's.
 13g. ``pipeline`` (main path of slice 7c): the five-stage pipeline
    through ``python -m instance_nerf_tpu_torch.pipeline``'s ``main`` at the
    JAX example's defaults (a 10-view 64^2 scene, 2 held out; the brick
@@ -3244,33 +3253,109 @@ def spatial_layouts(world: int) -> list:
 
 
 def _spatial_ref_runs(mesh=None):
-    """slice_spatial's reference: one f64 FCOS step, AABB and rotated, VGG-AF
-    (``REF_TRAIN_BACKBONE``), the synthetic global batch of 2 at
-    ``SPATIAL_REF_SHAPE``, of one process (``mesh`` None) or of one rank:
-    {name: (metrics, the gradients the optimizer was given)}."""
+    """slice_spatial's reference: one f64 step of FCOS and of the anchor
+    RPN, AABB and rotated, VGG-AF (``REF_TRAIN_BACKBONE``), the synthetic
+    global batch of 2 at ``SPATIAL_REF_SHAPE`` (the RPN's padded to 64^3),
+    of one process (``mesh`` None) or of one rank: {name: (metrics, the
+    gradients the optimizer was given)}, and for the RPN a third item: the
+    rank's anchors a level, labels and sampled positive and negative masks
+    (``models/rpn.py:sample_anchors``)."""
     import torch
 
+    from instance_nerf_tpu_torch.models import rpn as rpn_model
+
     out = {}
-    for name, rotated in (("fcos_aabb", False), ("fcos_rotated", True)):
-        tr = make_trainer("fcos", rotated, "cuda", mesh=mesh, batch_size=2, dtype="float32",
-                          max_gt=6, seed=5, backbone_type=REF_TRAIN_BACKBONE)
+    for name, kind, rotated in (("fcos_aabb", "fcos", False), ("fcos_rotated", "fcos", True),
+                                ("rpn_aabb", "rpn", False), ("rpn_rotated", "rpn", True)):
+        cfg = dict(batch_size=2, dtype="float32", max_gt=6, seed=5,
+                   backbone_type=REF_TRAIN_BACKBONE)
+        if kind == "rpn":
+            cfg["batch_size_per_mesh"] = 64
+        tr = make_trainer(kind, rotated, "cuda", mesh=mesh, **cfg)
         tr.init_state()
         tr.model.double()
         loader = tr._card_train_batch
         tr._card_train_batch = lambda *a, f=loader: tuple(
             x.double() if x.is_floating_point() else x for x in f(*a))
         seen = _capture_grads(tr.state.tx)
-        metrics = tr._card_train_step(2, SPATIAL_REF_SHAPE)()
+        samples = []
+        sample = rpn_model.sample_anchors
+
+        def recorded(*a, **k):
+            got = sample(*a, **k)
+            samples.append({"level_counts": list(k["level_counts"]), "labels": got[0].cpu(),
+                            "pos": got[2].pos_mask.cpu(), "neg": got[2].neg_mask.cpu()})
+            return got
+
+        rpn_model.sample_anchors = recorded
+        try:
+            metrics = tr._card_train_step(2, SPATIAL_REF_SHAPE)()
+        finally:
+            rpn_model.sample_anchors = sample
         out[name] = ({k: float(v) for k, v in metrics.items()}, seen[0])
+        if kind == "rpn":
+            out[name] += (samples[0],)
         del tr
         torch.cuda.empty_cache()
     return out
 
 
+def scene_order(records: list, key: str, n_spatial: int):
+    """The ranks' ``key`` (N_local, R_local; the ``sample_anchors`` records
+    of every rank, in rank order) put back into each scene's anchor order:
+    per data group, level by level, the ``sp`` ranks' anchors of that level
+    in rank order; the data groups' scenes stacked."""
+    import torch
+
+    out = []
+    for d in range(0, len(records), n_spatial):
+        group = records[d:d + n_spatial]
+        cols = []
+        for lvl in range(len(group[0]["level_counts"])):
+            for rec in group:
+                c = rec["level_counts"]
+                cols.append(rec[key][:, sum(c[:lvl]):sum(c[:lvl + 1])])
+        out.append(torch.cat(cols, 1))
+    return torch.cat(out, 0)
+
+
+def spatial_cell(tr, shape, halo: dict) -> dict:
+    """A full-width train cell on a spatial layout: ``benchmark_train_step``
+    and ``profile_train`` of trainer ``tr`` (global batch 4 at ``shape``)
+    with ``halo`` (its mesh's counts) zeroed first: the step ms, scenes/s,
+    peak bytes, halo bytes and exchanges a step, spans, busy share, losses."""
+    import torch
+
+    parts = {}
+    t0 = t = time.perf_counter()
+    tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+    t = lap(parts, "setup", t)
+    torch.cuda.reset_peak_memory_stats()
+    halo.update(bytes=0, exchanges=0)
+    bench = tr.benchmark_train_step(shape=shape, batch=4, **SPATIAL_BENCH)
+    moved = dict(halo)
+    # the benchmark's steps (and FCOS's FLOP count's)
+    steps = SPATIAL_BENCH["warmup"] + SPATIAL_BENCH["reps"] + ("mfu" in bench)
+    t = lap(parts, "benchmark", t)
+    prof = tr.profile_train(shape=shape, batch=4, **SPATIAL_PROFILE)
+    lap(parts, "profile", t)
+    return {"mesh": repr(tr.mesh), "step_ms": bench["median_ms"], "step_ms_mean": bench["mean_ms"],
+            "step_ms_min": bench["min_ms"], "scenes_per_s": bench["scenes_per_s"],
+            "peak_mem_bytes": bench["peak_mem_bytes"],
+            "halo_bytes_per_step": moved["bytes"] / steps,
+            "halo_exchanges_per_step": moved["exchanges"] / steps,
+            "spans_ms": prof["stages_ms_median"], "profile_wall_ms": prof["wall_ms_median"],
+            "device_busy_share": prof["device_busy_share"],
+            "tflops_per_step": bench.get("tflops_per_step"), "mfu": bench.get("mfu"),
+            "losses_last": bench["losses"][-1],
+            "losses_finite": all(np.isfinite(v) for m in bench["losses"] for v in m.values()),
+            "seconds": time.perf_counter() - t0, "parts_s": parts}
+
+
 def child_slice_spatial(out, backend="gloo"):
-    """One rank of ``slice_spatial`` under the launcher: the full-width cell
-    of each layout (``spatial_layouts``), the f64 reference, then
-    ``run_fcos --n_spatial 2 --mode train``."""
+    """One rank of ``slice_spatial`` under the launcher: the full-width FCOS
+    and rotated anchor-RPN cells of each layout (``spatial_layouts``), the
+    f64 reference, then ``run_fcos --n_spatial 2 --mode train``."""
     import contextlib
     import io
 
@@ -3281,6 +3366,7 @@ def child_slice_spatial(out, backend="gloo"):
     from instance_nerf_tpu_torch.data.synthetic import write_dataset
     from instance_nerf_tpu_torch.parallel.mesh import make_mesh
     from instance_nerf_tpu_torch.train.fcos_trainer import FCOSConfig, FCOSTrainer
+    from instance_nerf_tpu_torch.train.rpn_trainer import RPNConfig, RPNTrainer
 
     if not dist.is_initialized():  # alone: join the launcher's group, bind the card
         make_mesh(backend=backend, device="cuda")
@@ -3288,50 +3374,47 @@ def child_slice_spatial(out, backend="gloo"):
     world = dist.get_world_size()
     report = {"backend": dist.get_backend(), "world": world, "cells": {}, "ref": {}}
     for n_sp in spatial_layouts(world):
-        # the full-width cell at the JAX defaults: its timed steps, each
-        # rank's peak bytes, the halo bytes a step, the spans
-        parts = {}
-        t0 = t = time.perf_counter()
+        # the full-width cells at the JAX defaults: FCOS AABB at 160^3 as
+        # FCOSConfig(n_spatial=...) builds it; the rotated anchor RPN (its
+        # config has no spatial axis, as the JAX one) on this layout's mesh
         tr = FCOSTrainer(FCOSConfig(n_spatial=n_sp), device="cuda")
-        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
-        t = lap(parts, "setup", t)
-        torch.cuda.reset_peak_memory_stats()
-        tr.mesh.halo.update(bytes=0, exchanges=0)
-        bench = tr.benchmark_train_step(shape=FCOS_GRID, batch=4, **SPATIAL_BENCH)
-        halo = dict(tr.mesh.halo)
-        steps = SPATIAL_BENCH["warmup"] + SPATIAL_BENCH["reps"] + 1  # and the FLOP count's
-        t = lap(parts, "benchmark", t)
-        prof = tr.profile_train(shape=FCOS_GRID, batch=4, **SPATIAL_PROFILE)
-        lap(parts, "profile", t)
-        report["cells"][f"sp{n_sp}"] = {
-            "mesh": repr(tr.mesh), "step_ms": bench["median_ms"], "step_ms_mean": bench["mean_ms"],
-            "step_ms_min": bench["min_ms"], "scenes_per_s": bench["scenes_per_s"],
-            "peak_mem_bytes": bench["peak_mem_bytes"],
-            "halo_bytes_per_step": halo["bytes"] / steps,
-            "halo_exchanges_per_step": halo["exchanges"] / steps,
-            "spans_ms": prof["stages_ms_median"], "profile_wall_ms": prof["wall_ms_median"],
-            "device_busy_share": prof["device_busy_share"],
-            "tflops_per_step": bench.get("tflops_per_step"), "mfu": bench.get("mfu"),
-            "losses_last": bench["losses"][-1],
-            "losses_finite": all(np.isfinite(v) for m in bench["losses"] for v in m.values()),
-            "seconds": time.perf_counter() - t0, "parts_s": parts}
+        report["cells"][f"sp{n_sp}"] = spatial_cell(tr, FCOS_GRID, tr.mesh.halo)
         del tr
         release()
-        # the f64 reference on this layout
+        mesh = make_mesh(n_data=world // n_sp, n_spatial=n_sp, device="cuda")
+        tr = RPNTrainer(RPNConfig(rotated_bbox=True), device="cuda", mesh=mesh)
+        report["cells"][f"rpn_sp{n_sp}"] = spatial_cell(tr, TRAIN_CELLS["rpn_rotated"]["shape"],
+                                                        mesh.halo)
+        del tr
+        release()
+        # the f64 reference on this layout; the RPN's sampled masks of every
+        # rank to rank 0
         t0 = time.perf_counter()
         mesh = make_mesh(n_data=world // n_sp, n_spatial=n_sp, device="cuda")
         mine = _spatial_ref_runs(mesh)
+        torch.save({k: v[2] for k, v in mine.items() if len(v) > 2},
+                   os.path.join(out, f"samples_sp{n_sp}.{_rank()}.pt"))
+        dist.barrier()
         if _rank() == 0:
             one = torch.load(os.path.join(out, "one_spatial.pt"), weights_only=False)
+            ranks = [torch.load(os.path.join(out, f"samples_sp{n_sp}.{r}.pt"), weights_only=False)
+                     for r in range(world)]
             rep = {}
-            for name, (m1, g1) in one.items():
-                m2, g2 = mine[name]
+            for name, (m1, g1, *s1) in one.items():
+                m2, g2 = mine[name][:2]
                 errs = {k: _rel(g2[k], g1[k]) for k in g1}
-                rep[name] = {"num_pos": [m1["num_pos"], m2["num_pos"]],
-                             "max_rel_err_losses": max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-6)
+                rep[name] = {"max_rel_err_losses": max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-6)
                                                        for k in m1),
                              "max_grad_err": max(errs.values()),
                              "worst": max(errs, key=errs.get)}
+                if "num_pos" in m1:
+                    rep[name]["num_pos"] = [m1["num_pos"], m2["num_pos"]]
+                if s1:
+                    recs = [r[name] for r in ranks]
+                    rep[name]["masks_equal"] = {
+                        key: bool(torch.equal(scene_order(recs, key, n_sp), s1[0][key]))
+                        for key in ("labels", "pos", "neg")}
+                    rep[name]["sampled"] = [int(s1[0]["pos"].sum()), int(s1[0]["neg"].sum())]
             report["ref"][f"sp{n_sp}"] = dict(rep, seconds=time.perf_counter() - t0,
                                               mesh=repr(mesh))
         del mine
@@ -3372,7 +3455,7 @@ def prepare_slice_spatial(work) -> str:
     return out
 
 
-def phase_slice_spatial(work, smi, out=None, one_cell=None):
+def phase_slice_spatial(work, smi, out=None, one_cells=None):
     """Main path of slice 7b: FCOS training with each scene's W split over
     the ``sp`` ranks of a launched mesh (``parallel/spatial.py``), at the
     JAX defaults (global batch 4, 160^3, bf16, VGG-EF, AABB). On one card 2
@@ -3382,24 +3465,32 @@ def phase_slice_spatial(work, smi, out=None, one_cell=None):
     sp 2``. Per layout: the step ms (median of the timed steps), the spans
     ``forward``, ``loss``, ``backward``, ``allreduce``, ``halo``, the halo
     bytes a step (summed over the ranks) and each rank's peak bytes beside
-    the one-process cell's (``one_cell``: slice_train's ``fcos_aabb``, the
-    same cell, or measured here); an f64 step of FCOS AABB and rotated,
-    VGG-AF at ``SPATIAL_REF_SHAPE``, held to this process's one-process
-    step (losses 1e-6, every gradient 1e-5 of its largest entry); ``run_fcos
+    the one-process cell's (``one_cells``: slice_train's ``fcos_aabb`` and
+    ``rpn_rotated``, the same cells, or measured here); an f64 step of FCOS
+    and of the anchor RPN, AABB and rotated, VGG-AF at ``SPATIAL_REF_SHAPE``,
+    held to this process's one-process step (losses 1e-6, every gradient
+    1e-5 of its largest entry, the RPN's sampled masks equal); ``run_fcos
     --n_spatial 2 --mode train`` at 64^3, 2 epochs (B1 in rank 0's evals,
-    one checkpoint and ``best/``). ``out``: the directory of a launch that
-    already ran the ranks' part (``small_reference_dist``'s); else the
-    phase launches them itself, after its one-process reference."""
+    one checkpoint and ``best/``). Slice 7d adds the rotated anchor-RPN
+    cell (``rpn_sp*``: ``RPNConfig(rotated_bbox=True)``, global batch 4 at
+    200x200x130 padded to 224x224x160) on each layout. ``out``: the
+    directory of a launch that already ran the ranks' part
+    (``small_reference_dist``'s); else the phase launches them itself,
+    after its one-process reference."""
     import torch
 
     t0 = time.perf_counter()
     n = torch.cuda.device_count()
-    if one_cell is None:
-        tr = make_trainer("fcos", False, "cuda")
-        tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
-        one_cell = tr.benchmark_train_step(shape=FCOS_GRID, batch=4, **SPATIAL_BENCH)
-        del tr
-        release()
+    if one_cells is None:
+        one_cells = {}
+        for name in ("fcos_aabb", "rpn_rotated"):
+            cell = TRAIN_CELLS[name]
+            tr = make_trainer(cell["kind"], cell["rotated"], "cuda")
+            tr.init_state(total_steps=TRAIN_SCHEDULE_STEPS)
+            one_cells[name] = tr.benchmark_train_step(shape=cell["shape"], batch=4,
+                                                      **SPATIAL_BENCH)
+            del tr
+            release()
     if out is None:
         out = prepare_slice_spatial(work)
         ranks = max(n, 2)
@@ -3411,23 +3502,29 @@ def phase_slice_spatial(work, smi, out=None, one_cell=None):
     cells = {}
     for name, cell in rep[0]["cells"].items():
         per_rank = [r["cells"][name] for r in rep]
+        one_cell = one_cells["rpn_rotated" if name.startswith("rpn") else "fcos_aabb"]
         cells[name] = {**cell, "peak_mem_bytes_per_rank": [c["peak_mem_bytes"] for c in per_rank],
                        "halo_bytes_per_step": sum(c["halo_bytes_per_step"] for c in per_rank),
                        "halo_exchanges_per_step_rank0": cell["halo_exchanges_per_step"],
                        "one_process_peak_mem_bytes": one_cell["peak_mem_bytes"],
                        "one_process_step_ms": one_cell.get("median_ms",
-                                                           one_cell.get("step_ms_median"))}
+                                                           one_cell.get("step_ms_median")),
+                       "one_process_batch": one_cell.get("batch", 4)}
         del cells[name]["peak_mem_bytes"], cells[name]["halo_exchanges_per_step"]
         if not all(c["losses_finite"] for c in per_rank):
             failed.append(f"{name}: a loss is not finite")
         if not cell["halo_bytes_per_step"] > 0 or "halo" not in cell["spans_ms"]:
             failed.append(f"{name}: no halo exchanged or no halo span")
     for name, ref in rep[0]["ref"].items():
-        for kind in ("fcos_aabb", "fcos_rotated"):
+        for kind in ("fcos_aabb", "fcos_rotated", "rpn_aabb", "rpn_rotated"):
             r = ref[kind]
-            if r["max_rel_err_losses"] > 1e-6 or r["max_grad_err"] > 1e-5 or not (
-                    r["num_pos"][0] == r["num_pos"][1] > 0):
+            if r["max_rel_err_losses"] > 1e-6 or r["max_grad_err"] > 1e-5:
                 failed.append(f"ref {name} {kind}: {r}")
+            if kind.startswith("fcos") and not r["num_pos"][0] == r["num_pos"][1] > 0:
+                failed.append(f"ref {name} {kind}: {r}")
+            if kind.startswith("rpn") and not (all(r["masks_equal"].values())
+                                               and min(r["sampled"]) > 0):
+                failed.append(f"ref {name} {kind}: sampled masks {r}")
     cli = rep[0]["cli"]
     kept = cli["checkpoints"]
     if cli["launches"]["nms_boxes"] == 0:
@@ -3436,6 +3533,7 @@ def phase_slice_spatial(work, smi, out=None, one_cell=None):
         failed.append(f"run_fcos --n_spatial 2: checkpoints {kept}")
     report = {"phase": "slice_spatial", "ranks": ranks, "backend": rep[0]["backend"],
               "grid": list(FCOS_GRID), "batch": 4, "backbone": "vgg_EF", "dtype": "bfloat16",
+              "rpn_grid": [-(-s // 32) * 32 for s in TRAIN_CELLS["rpn_rotated"]["shape"]],
               "nvidia_smi": smi, "cells": cells, "ref": rep[0]["ref"],
               "ref_shape": list(SPATIAL_REF_SHAPE),
               "cli": {k: cli[k] for k in ("launches", "seconds", "summary", "checkpoints")},
@@ -3842,7 +3940,7 @@ def main():
         sp_out = prepare_slice_spatial(work)
         # slice_spatial's ranks run in small_reference_dist's launch
         dist_ref = phase_small_reference_dist(work, also=[("slice_spatial", sp_out, "gloo")])
-        spatial = phase_slice_spatial(work, smi, sp_out, one_cell=train["fcos_aabb"])
+        spatial = phase_slice_spatial(work, smi, sp_out, one_cells=train)
         pipe = phase_pipeline(work, smi)
         legacy = phase_slice_legacy(smi)
         phase_utils(work, smi)

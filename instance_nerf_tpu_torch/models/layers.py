@@ -74,7 +74,9 @@ class Conv3d(nn.Module):
             # W: this rank's input rows with their halo, padded past the
             # global edges only
             out, want = window_rows(layout, self.kernel, self.stride)
-            x = exchange(x, layout, want)
+            if any(w != (((lo, hi),) if hi > lo else ())
+                   for w, (lo, hi) in zip(want, layout.owned)):
+                x = exchange(x, layout, want)  # a pointwise conv takes no rows
             pads[0] = (0, 0)
             if out.hi == out.lo:
                 shape = (x.shape[0], 0, *[-(-n // self.stride) for n in x.shape[2:4]],

@@ -11,10 +11,21 @@ coordinate ``k``.
 ``filter_proposals``: per-level top-n (ties to the lower index), decode,
 clip (AABB), small-box and score masks, per-level NMS (B1 for AABBs, the
 rotated IoU and B2 for OBBs) and a global top-n, with static shapes.
+
+Given the grid's W layout (``parallel/spatial.py``), the network runs on
+this ``sp`` rank's rows of every level (halos in the backbone and the
+head's k3 convs), its anchors are those of its rows in global voxel
+coordinates, and ``rpn_loss`` takes the targets over the whole scene: each
+gt's best anchor quality is the MAX over the ranks, and the balanced
+sampler runs on the labels gathered from every rank in the global anchor
+order (level-major; within a level location-major, so a rank's anchors of
+a level are one contiguous range), each rank keeping its own columns. The
+sampled masks are then those of one process on the whole grid.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -35,7 +46,8 @@ from instance_nerf_tpu_torch.ops.boxes import (
 from instance_nerf_tpu_torch.ops.coders import AABBCoder, MidpointOffsetCoder
 from instance_nerf_tpu_torch.ops.projection import projection_loss_points
 from instance_nerf_tpu_torch.ops.rotated_iou import cal_diou_3d, cal_giou_3d, cal_iou_3d
-from instance_nerf_tpu_torch.ops.sampling import balanced_sample, match_proposals
+from instance_nerf_tpu_torch.ops.sampling import SampleResult, balanced_sample, match_proposals
+from instance_nerf_tpu_torch.parallel.spatial import gather_over, max_over
 
 DEFAULT_ANCHOR_SIZES = ((8.0,), (16.0,), (32.0,), (64.0,))
 DEFAULT_ASPECT_RATIOS = (
@@ -72,12 +84,17 @@ class AnchorGenerator3D:
         return np.round(np.concatenate([-whd, whd], axis=1) / 2).astype(np.float32)
 
     def grid_anchors(self, feature_shapes: Sequence[tuple[int, int, int]],
-                     strides: Sequence[tuple[int, int, int]]):
-        """Per level an ``(R_l * A_l, 6)`` array; index = loc * A + a."""
+                     strides: Sequence[tuple[int, int, int]],
+                     w_offsets: Sequence[int] | None = None):
+        """Per level an ``(R_l * A_l, 6)`` array; index = loc * A + a.
+        ``w_offsets``: each level's first global W row (the anchors of a
+        rank's rows ``[lo, lo + w)`` of a W-split level)."""
         out = []
+        offsets = w_offsets or (0,) * len(feature_shapes)
         for lvl, (shape, stride) in enumerate(zip(feature_shapes, strides)):
             base = self.base_anchors(lvl)  # (A, 6)
-            ax = [np.arange(s, dtype=np.float32) * st for s, st in zip(shape, stride)]
+            ax = [np.arange(o, o + s, dtype=np.float32) * st
+                  for s, st, o in zip(shape, stride, (offsets[lvl], 0, 0))]
             gx, gy, gz = np.meshgrid(*ax, indexing="ij")
             shifts = np.stack([gx, gy, gz, gx, gy, gz], axis=-1).reshape(-1, 1, 6)
             out.append((shifts + base[None]).reshape(-1, 6))
@@ -87,7 +104,9 @@ class AnchorGenerator3D:
 class RPNHead(nn.Module):
     """Shared 3x3 conv tower -> 1x1 objectness + 1x1 deltas, run on every
     level. Outputs per level: logits ``(N, w, l, h, A)`` and deltas
-    ``(N, w, l, h, A, d)`` with d = 8 (OBB) or 6 (AABB)."""
+    ``(N, w, l, h, A, d)`` with d = 8 (OBB) or 6 (AABB). With the levels'
+    W ``layouts`` the k3 convs exchange their halos; the 1x1 convs take no
+    other rank's rows."""
 
     def __init__(self, in_ch: int, num_anchors: int, conv_depth: int = 4,
                  rotated: bool = False, dtype=None):
@@ -99,14 +118,15 @@ class RPNHead(nn.Module):
         self.cls_logits = Conv3d(in_ch, num_anchors, 1, dtype=dtype)
         self.bbox_pred = Conv3d(in_ch, num_anchors * self.box_dim, 1, dtype=dtype)
 
-    def forward(self, features: Sequence[torch.Tensor]):
+    def forward(self, features: Sequence[torch.Tensor], layouts=None):
         logits, deltas = [], []
-        for t in features:
+        for lvl, t in enumerate(features):
+            lay = None if layouts is None else layouts[lvl]
             for i in range(self.conv_depth):
-                t = F.relu(getattr(self, f"conv_{i}")(t))
-            logits.append(self.cls_logits(t))  # channels-last view
+                t = F.relu(getattr(self, f"conv_{i}")(t, lay))
+            logits.append(self.cls_logits(t, lay))  # channels-last view
             # reshape copies in channels-last order: channel a * d + k
-            deltas.append(self.bbox_pred(t).reshape(
+            deltas.append(self.bbox_pred(t, lay).reshape(
                 *t.shape[:4], self.num_anchors, self.box_dim))
         return logits, deltas
 
@@ -115,9 +135,10 @@ def flatten_head_outputs(logits, deltas):
     """(N, R_total) objectness + (N, R_total, D) deltas, location-major
     anchor-minor per level, levels concatenated."""
     n = logits[0].shape[0]
-    obj = torch.cat([l.reshape(n, -1) for l in logits], dim=1)
+    # explicit sizes: a rank's level may hold no rows
+    obj = torch.cat([l.reshape(n, math.prod(l.shape[1:])) for l in logits], dim=1)
     d = deltas[0].shape[-1]
-    reg = torch.cat([r.reshape(n, -1, d) for r in deltas], dim=1)
+    reg = torch.cat([r.reshape(n, math.prod(r.shape[1:-1]), d) for r in deltas], dim=1)
     return obj, reg
 
 
@@ -148,17 +169,26 @@ def assign_targets_to_anchors(
     fg_iou_thresh: float = 0.7,
     bg_iou_thresh: float = 0.3,
     pad_mask: torch.Tensor | None = None,  # (R,)
+    layout=None,
 ) -> RPNTargets:
     """One scene's anchor labels (1 positive, 0 negative, -1 ignored) and
     matched gt, by AABB IoU (an OBB gt through its enclosing AABB) with the
-    low-quality matches recovered; a scene without gt is all background."""
+    low-quality matches recovered; a scene without gt is all background.
+    With the grid's W ``layout`` the anchors are this rank's and a gt's
+    best quality is the MAX over the ``sp`` ranks': every anchor at it, on
+    whichever rank, keeps its argmax gt."""
     gt_for_iou = obb2hbb_3d(gt_boxes) if gt_boxes.shape[-1] == 7 else gt_boxes
     quality = box_iou_3d(gt_for_iou, anchors)  # (K, R)
     quality = torch.where(gt_mask[:, None], quality, torch.full_like(quality, -1.0))
     if pad_mask is not None:
         quality = torch.where(pad_mask[None, :], quality, torch.full_like(quality, -1.0))
+    gt_best = None
+    if layout is not None:
+        gt_best = max_over(quality.amax(dim=-1) if quality.shape[-1]
+                           else quality.new_full(quality.shape[:-1], -torch.inf), layout)
     matched = match_proposals(quality, fg_iou_thresh, bg_iou_thresh,
-                              allow_low_quality_matches=True, gt_valid=gt_mask)
+                              allow_low_quality_matches=True, gt_valid=gt_mask,
+                              gt_best=gt_best)
     matched_gt = gt_boxes[matched.clamp_min(0)]
     one, zero, ignore = (torch.full(matched.shape, v, device=matched.device)
                          for v in (1.0, 0.0, -1.0))
@@ -169,6 +199,67 @@ def assign_targets_to_anchors(
         labels = zero if pad_mask is None else torch.where(pad_mask, zero, ignore)
         matched_gt = torch.zeros_like(matched_gt)
     return RPNTargets(labels, matched_gt)
+
+
+def scene_labels(labels: torch.Tensor, layout, level_counts: Sequence[int]):
+    """This rank's anchor labels ``(N, R)`` (levels of ``level_counts``
+    anchors, concatenated) gathered from every ``sp`` rank into the scene's
+    anchor order ``(N, R_scene)``, and this rank's columns there (a
+    contiguous range a level: ``[(a, b)]``)."""
+    dev = labels.device
+    counts = gather_over(torch.tensor([list(level_counts)], dtype=torch.int64, device=dev),
+                         layout, 0, sizes=[1] * layout.parts).cpu().numpy()  # (ranks, levels)
+    parts, levels = counts.shape
+    blocks = gather_over(labels.to(torch.int8), layout, 1,
+                         sizes=counts.sum(1).tolist()).split(counts.reshape(-1).tolist(), 1)
+    scene = torch.cat([blocks[q * levels + lvl] for lvl in range(levels) for q in range(parts)],
+                      1).to(labels.dtype)
+    first = (np.concatenate([[0], np.cumsum(counts.sum(0))[:-1]])
+             + (np.cumsum(counts, 0) - counts)[layout.index])
+    return scene, [(int(a), int(a + c)) for a, c in zip(first, counts[layout.index])]
+
+
+def own_columns(x: torch.Tensor, cols) -> torch.Tensor:
+    """The last axis's columns ``[(a, b)]`` of ``x``, concatenated."""
+    return torch.cat([x[..., a:b] for a, b in cols], -1)
+
+
+def sample_anchors(
+    anchors: torch.Tensor,  # (R, 6)
+    gt_boxes: torch.Tensor,  # (N, K, 6|7)
+    gt_mask: torch.Tensor,  # (N, K)
+    batch_size_per_mesh: int = 256,
+    positive_fraction: float = 0.5,
+    fg_iou_thresh: float = 0.7,
+    bg_iou_thresh: float = 0.3,
+    pad_mask: torch.Tensor | None = None,  # (N, R)
+    uniforms: torch.Tensor | None = None,  # (N, 2, R_scene)
+    generator: torch.Generator | None = None,
+    shard=None,
+    layout=None,
+    level_counts: Sequence[int] | None = None,
+):
+    """``rpn_loss``'s targets: (labels ``(N, R)``, matched gt ``(N, R, 6|7)``,
+    the balanced sample's ``SampleResult`` over these anchors). With the
+    grid's W ``layout`` (``level_counts``: this rank's anchors a level) the
+    sampler ranks the scene's labels, gathered from every ``sp`` rank, by
+    uniforms over the scene's anchors, and this rank keeps its columns."""
+    n = gt_boxes.shape[0]
+    targets = [assign_targets_to_anchors(
+        anchors, gt_boxes[i], gt_mask[i], fg_iou_thresh, bg_iou_thresh,
+        None if pad_mask is None else pad_mask[i], layout) for i in range(n)]
+    labels = torch.stack([t.labels for t in targets])
+    scene, cols = labels, None
+    if layout is not None:
+        scene, cols = scene_labels(labels, layout, level_counts)
+    if uniforms is None and shard is not None:
+        uniforms = shard.rand((2, scene.shape[-1]), generator, labels.device)
+    samples = balanced_sample(scene.to(torch.int64), batch_size_per_mesh, positive_fraction,
+                              uniforms=uniforms, generator=generator)
+    if cols is not None:
+        samples = SampleResult(own_columns(samples.pos_mask, cols),
+                               own_columns(samples.neg_mask, cols))
+    return labels, torch.stack([t.matched_gt for t in targets]), samples
 
 
 def rpn_loss(
@@ -189,6 +280,8 @@ def rpn_loss(
     uniforms: torch.Tensor | None = None,  # (N, 2, R)
     generator: torch.Generator | None = None,
     shard=None,
+    layout=None,
+    level_counts: Sequence[int] | None = None,
 ) -> dict:
     """BCE objectness over the sampled anchors, box regression on the
     positives over the sampled count, and the 2D projection loss over the
@@ -204,22 +297,26 @@ def rpn_loss(
     ``shard`` (``parallel/mesh.py:Shard``, a data-parallel step): these
     are its rows of the global batch; the draws are its rows of the global
     batch's, and the sampled and positive counts are summed over the ranks,
-    so that the losses sum over the ranks to the global batch's."""
+    so that the losses sum over the ranks to the global batch's.
+
+    ``layout`` (the grid's W layout on the mesh's spatial axis, with
+    ``shard``): the head outputs, ``anchors`` (``level_counts`` a level) and
+    ``pad_mask`` are this ``sp`` rank's; the targets are the whole scene's
+    (``sample_anchors``), ``uniforms`` are drawn over the scene's anchors,
+    and the numerators are this rank's, so that the ranks' losses add up to
+    the global batch's."""
     if reg_loss_type != "smooth_l1" and not rotated:
         raise ValueError(f"reg_loss_type {reg_loss_type!r} needs rotated boxes")
+    if layout is not None and shard is None:
+        raise ValueError("a W layout needs the batch's shard: the counts sum over the world")
     objectness = objectness.float()
     pred_deltas = pred_deltas.float()
-    n = objectness.shape[0]
     coder = MidpointOffsetCoder() if rotated else AABBCoder()
     with torch.no_grad():
-        targets = [assign_targets_to_anchors(
-            anchors, gt_boxes[i], gt_mask[i], fg_iou_thresh, bg_iou_thresh,
-            None if pad_mask is None else pad_mask[i]) for i in range(n)]
-        labels = torch.stack([t.labels for t in targets])
-        if uniforms is None and shard is not None:
-            uniforms = shard.rand((2, labels.shape[-1]), generator, labels.device)
-        samples = balanced_sample(labels.to(torch.int64), batch_size_per_mesh,
-                                  positive_fraction, uniforms=uniforms, generator=generator)
+        labels, matched_gt, samples = sample_anchors(
+            anchors, gt_boxes, gt_mask, batch_size_per_mesh, positive_fraction,
+            fg_iou_thresh, bg_iou_thresh, pad_mask=pad_mask, uniforms=uniforms,
+            generator=generator, shard=shard, layout=layout, level_counts=level_counts)
     pos = samples.pos_mask
     sampled = pos | samples.neg_mask
     num_sampled, num_pos = sampled.sum(), pos.sum()
@@ -234,7 +331,7 @@ def rpn_loss(
     at = pos.nonzero(as_tuple=True)
     deltas = pred_deltas[at]
     anchors_pos = anchors[at[1]]
-    matched_gt = torch.stack([t.matched_gt for t in targets])[at]
+    matched_gt = matched_gt[at]
     if reg_loss_type == "smooth_l1":
         reg_t = coder.encode(matched_gt, anchors_pos)
         per = smooth_l1(deltas, reg_t, beta=1 / 9).sum(-1)
@@ -338,7 +435,9 @@ def filter_proposals(
 class NeRFRegionProposalNetwork(nn.Module):
     """Backbone + anchor RPN head. ``forward`` returns the raw head outputs
     flattened (objectness ``(N, R)``, deltas ``(N, R, D)``), the anchors per
-    level (device tensors, cached per feature geometry) and the features."""
+    level (device tensors, cached per feature geometry, W offsets and
+    device) and the features; given the grid's W ``layout``, all of them
+    this ``sp`` rank's."""
 
     def __init__(self, backbone: nn.Module, anchor_generator=None,
                  conv_depth: int = 4, rotated: bool = False,
@@ -352,24 +451,35 @@ class NeRFRegionProposalNetwork(nn.Module):
                                 conv_depth=conv_depth, rotated=rotated, dtype=dtype)
         self._anchors = {}
 
-    def features(self, grids):
-        return list(self.backbone(grids))[:len(self.fpn_strides)]
+    def features(self, grids, layout=None):
+        """The levels; with the grid's W ``layout``, (levels, their layouts)."""
+        n = len(self.fpn_strides)
+        if layout is None:
+            return list(self.backbone(grids))[:n]
+        feats, layouts = self.backbone(grids, layout=layout)
+        return list(feats)[:n], list(layouts)[:n]
 
-    def anchors(self, features):
+    def anchors(self, features, layouts=None):
         shapes = tuple(tuple(f.shape[1:4]) for f in features)
+        # a rank's rows: equal local shapes of two layouts are other anchors
+        offsets = tuple(0 if lay is None else lay.lo for lay in layouts or ())
         dev = features[0].device
-        key = (shapes, str(dev))
+        key = (shapes, offsets, str(dev))
         if key not in self._anchors:
             strides = [(s,) * 3 for s in self.fpn_strides]
-            self._anchors[key] = [torch.from_numpy(a).to(dev)
-                                  for a in self.gen.grid_anchors(shapes, strides)]
+            self._anchors[key] = [torch.from_numpy(a).to(dev) for a in
+                                  self.gen.grid_anchors(shapes, strides, offsets or None)]
         return self._anchors[key]
 
-    def head(self, features):
+    def head(self, features, layouts=None):
         """Flattened objectness ``(N, R)`` and deltas ``(N, R, D)``."""
-        return flatten_head_outputs(*self.rpn_head(features))
+        return flatten_head_outputs(*self.rpn_head(features, layouts))
 
-    def forward(self, grids):
-        features = self.features(grids)
-        obj, reg = self.head(features)
-        return obj, reg, self.anchors(features), features
+    def forward(self, grids, layout=None):
+        layouts = None
+        if layout is None:
+            features = self.features(grids)
+        else:
+            features, layouts = self.features(grids, layout)
+        obj, reg = self.head(features, layouts)
+        return obj, reg, self.anchors(features, layouts), features

@@ -315,3 +315,19 @@ def cal_diou_3d(box3d1, box3d2, enclosing_type: str = "smallest"):
     d2 = torch.sum((box3d1[..., 0:3] - box3d2[..., 0:3]) ** 2, dim=-1)
     c2_ = (w * w + h * h + z_range * z_range).clamp_min(EPS)
     return 1.0 - iou3d + d2 / c2_, iou3d
+
+
+def aabb2obb_3d(aabb: torch.Tensor) -> torch.Tensor:
+    """AABB ``(..., 6)`` -> canonical OBB ``(..., 7)``: ``w >= l``, theta 0,
+    or pi / 2 where the AABB is longer along y. (``ops/boxes.py``'s
+    ``aabb2obb_3d`` keeps the AABB's extents and theta 0, as the JAX
+    package's ``ops/boxes.py`` one does.)"""
+    lo, hi = aabb[..., 0:3], aabb[..., 3:6]
+    center = 0.5 * (lo + hi)
+    whd = hi - lo
+    w_t, l_t, h = whd[..., 0], whd[..., 1], whd[..., 2]
+    rot = w_t < l_t
+    w = torch.where(rot, l_t, w_t)
+    l = torch.where(rot, w_t, l_t)
+    theta = torch.where(rot, torch.full_like(w, torch.pi / 2), torch.zeros_like(w))
+    return torch.cat([center, torch.stack([w, l, h, theta], dim=-1)], dim=-1)

@@ -26,13 +26,16 @@ def match_proposals(
     low_threshold: float,
     allow_low_quality_matches: bool = False,
     gt_valid: torch.Tensor | None = None,
+    gt_best: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Assign each prediction the best gt (or a negative sentinel).
 
     ``match_quality_matrix`` is ``(..., M, N)`` gt x predictions, ``gt_valid``
     an optional ``(..., M)`` mask of padded gt rows. Returns ``(..., N)``
     int64: the matched gt index, or -1 (below low) / -2 (between). Ties go to
-    the first gt, as ``jnp.argmax``."""
+    the first gt, as ``jnp.argmax``. ``gt_best`` ``(..., M)``: each gt's
+    best quality over all predictions, where these are only some of them
+    (default: the best over these)."""
     quality = match_quality_matrix
     if gt_valid is not None:
         quality = torch.where(gt_valid[..., :, None], quality, torch.full_like(quality, -1.0))
@@ -45,7 +48,9 @@ def match_proposals(
     if allow_low_quality_matches:
         # predictions reaching a gt's best quality (ties included) get their
         # argmax gt back
-        is_best = quality == quality.amax(dim=-1, keepdim=True)
+        if gt_best is None:
+            gt_best = quality.amax(dim=-1)
+        is_best = quality == gt_best[..., None]
         if gt_valid is not None:
             is_best = is_best & gt_valid[..., :, None]
         matches = torch.where(is_best.any(dim=-2), all_matches, matches)

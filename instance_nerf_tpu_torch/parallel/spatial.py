@@ -22,15 +22,23 @@ out:
   only, so there the rows of a CUDA tensor are staged through the host.
 - ``sum_over``: the differentiable SUM over the ``sp`` group (a
   normalisation's statistics); its backward SUMs the gradient the same way.
+- ``max_over`` and ``gather_over``: a MAX over the ``sp`` group and the
+  ranks' blocks concatenated in rank order, without gradient (the anchor
+  RPN's targets: each gt's best anchor and the sampler's labels over the
+  whole scene). Under gloo a CUDA tensor goes through the host, as the
+  halos do; a rank outside the layout's group raises.
 - ``window_rows``: the input rows each rank's output rows of a SAME window
   op (conv, pool) need, pads taken from the global size.
 
 The layers (``models/layers.py``, ``models/swin.py``) take a ``layout`` and
-use these; without one they are the one-card code, unchanged. The loss
+use these; without one they are the one-card code, unchanged. FCOS's loss
 needs no exchange: each rank's locations carry their global coordinates
 (``models/fcos.py:compute_locations``) and its partial numerators divide
 by normalisers summed over the world, so the ranks' losses and gradients
-add up to the global batch's.
+add up to the global batch's. The anchor RPN's targets are not local (a
+gt's low-quality matches and the balanced sampler range over the whole
+scene's anchors), so ``models/rpn.py:rpn_loss`` takes them over the group
+with ``max_over`` and ``gather_over``.
 """
 from __future__ import annotations
 
@@ -145,10 +153,15 @@ def _plan(owned: Sequence, want: Sequence, size: int, me: int):
     return pieces, sends
 
 
+def _via_host(x: torch.Tensor, layout: WLayout) -> bool:
+    """A CUDA tensor goes through the host on a gloo group."""
+    return x.is_cuda and dist.get_backend(layout.group) == "gloo"
+
+
 def _p2p(layout: WLayout, sends: dict, recv_shapes: dict, like: torch.Tensor) -> dict:
     """Send ``sends[q]`` to rank ``q`` and receive ``recv_shapes[q]`` from
     it, all at once; returns the received tensors on ``like``'s device."""
-    stage_host = like.is_cuda and dist.get_backend(layout.group) == "gloo"
+    stage_host = _via_host(like, layout)
     stats = layout.stats if layout.stats is not None else {}
     ops, out = [], {}
     for q, t in sends.items():
@@ -261,6 +274,45 @@ def sum_over(x: torch.Tensor, layout: WLayout) -> torch.Tensor:
     return _SumOver.apply(x, layout)
 
 
+def _member(layout: WLayout) -> None:
+    """Raise unless this process is rank ``layout.index`` of the layout's
+    group: a collective over ``sp`` has no route around the group."""
+    if not dist.is_initialized() or layout.group is None:
+        raise RuntimeError("a collective over the sp ranks needs the layout's process group")
+    if layout.ranks and layout.ranks[layout.index] != dist.get_rank():
+        raise RuntimeError(f"rank {dist.get_rank()} is not rank {layout.index} of the sp "
+                           f"group {layout.ranks}")
+
+
+@torch.no_grad()
+def max_over(x: torch.Tensor, layout: WLayout) -> torch.Tensor:
+    """The elementwise MAX of ``x`` over the ``sp`` group (no gradient)."""
+    _member(layout)
+    out = (x.cpu() if _via_host(x, layout) else x).clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=layout.group)
+    return out.to(x.device)
+
+
+@torch.no_grad()
+def gather_over(x: torch.Tensor, layout: WLayout, dim: int,
+                sizes: Sequence[int]) -> torch.Tensor:
+    """The ``sp`` ranks' ``x`` concatenated along ``dim`` in rank order (no
+    gradient). Rank ``q``'s block is ``sizes[q]`` long along ``dim``: the
+    blocks may differ in length, or be empty."""
+    _member(layout)
+    t = (x.cpu() if _via_host(x, layout) else x).movedim(dim, 0).contiguous()
+    sizes = [int(s) for s in sizes]
+    if sizes[layout.index] != t.shape[0]:
+        raise ValueError(f"block of {t.shape[0]} rows, sizes say {sizes[layout.index]}")
+    top = max(sizes)
+    if t.shape[0] < top:
+        t = torch.cat([t, t.new_zeros((top - t.shape[0], *t.shape[1:]))])
+    got = [torch.empty_like(t) for _ in sizes]
+    dist.all_gather(got, t, group=layout.group)
+    out = torch.cat([g[:s] for g, s in zip(got, sizes)])
+    return out.movedim(0, dim).to(x.device)
+
+
 def empty_rows(shape, like: torch.Tensor, *connect) -> torch.Tensor:
     """A tensor of ``shape`` with no rows (a layer's output on a rank that
     owns none of its rows), in ``like``'s dtype, joined to the autograd
@@ -276,10 +328,12 @@ def empty_rows(shape, like: torch.Tensor, *connect) -> torch.Tensor:
 def grid_layout(mesh, size: int, stage=None) -> WLayout | None:
     """The layout of a W-split grid of ``size`` rows on ``mesh``'s ``sp``
     axis, counting its exchanges in ``mesh.halo``; None without a process
-    group, for ``sp = 1`` or on an idle rank (the one-card code)."""
+    group, for ``sp = 1`` or on an idle rank (the one-card code). Raises
+    where ``sp`` does not divide ``size`` (``split_size``)."""
     if (mesh is None or mesh.n_spatial == 1 or not mesh.active or mesh.sp_group is None
             or not dist.is_initialized()):
         return None
+    split_size(size, mesh.n_spatial)
     ranks = tuple(r for r, c in enumerate(mesh.coords) if c[:2] == mesh.coord[:2])
     return WLayout(int(size), mesh.n_spatial, mesh.sp_index, mesh.sp_group, ranks,
                    stage or no_stage, mesh.halo)

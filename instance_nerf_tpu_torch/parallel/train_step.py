@@ -25,11 +25,13 @@ the metrics over the ranks in flat buckets (the span ``allreduce``) before
 the clip, so every rank clips the global batch's gradient by its global
 norm and takes the same update.
 
-An FCOS step given the grid's W ``layout`` (``parallel/spatial.py``) is one
-``sp`` rank's part of a step over the mesh's spatial axis too: its grids
-are its rows of each scene's W, the forward exchanges halos with the other
-``sp`` ranks and its loss covers its own locations, so the same world SUM
-of the gradients gives the global batch's. With ``remat`` the backward's
+An FCOS or anchor-RPN step given the grid's W ``layout``
+(``parallel/spatial.py``) is one ``sp`` rank's part of a step over the
+mesh's spatial axis too: its grids are its rows of each scene's W, the
+forward exchanges halos with the other ``sp`` ranks and its loss covers its
+own locations or anchors (the RPN's targets taken over the whole scene,
+``models/rpn.py``), so the same world SUM of the gradients gives the global
+batch's. With ``remat`` the backward's
 recompute replays the exchanges; it recomputes the whole forward (no early
 stop), so every rank replays all of them in the same order.
 """
@@ -256,11 +258,13 @@ def make_fcos_train_step(model, reg_loss_weight: float = 1.0,
 
 
 def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-               generator=None, stage=no_stage, shard=None):
+               generator=None, stage=no_stage, shard=None, layout=None):
     """One anchor-RPN forward and loss: (total, losses with ``total``).
-    ``cfg`` is an ``RPNConfig``; only its loss and matching fields are read."""
+    ``cfg`` is an ``RPNConfig``; only its loss and matching fields are read.
+    ``layout``: the grids' W layout on the mesh's spatial axis (with
+    ``shard``); ``uniforms`` are then over the scene's anchors."""
     with stage("forward"):
-        obj, reg, anchors_l, _ = model(grids)
+        obj, reg, anchors_l, _ = model(grids, layout=layout)
     with stage("loss"):
         losses = rpn_loss(
             obj, reg, torch.cat(anchors_l), gt_boxes, gt_mask,
@@ -270,7 +274,8 @@ def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
             pad_mask=anchor_padding_mask(anchors_l, grid_sizes, tuple(cfg.fpn_strides)),
             rotated=cfg.rotated_bbox, reg_loss_type=cfg.reg_loss_type,
             max_mesh_dim=cfg.resolution, proj2d=cfg.proj2d_loss_weight > 0,
-            uniforms=uniforms, generator=generator, shard=shard)
+            uniforms=uniforms, generator=generator, shard=shard, layout=layout,
+            level_counts=[a.shape[0] for a in anchors_l])
         total = losses["loss_objectness"] + losses["loss_rpn_box_reg"]
         if cfg.proj2d_loss_weight > 0:
             total = total + cfg.proj2d_loss_weight * losses["loss_rpn_box_reg_2d"]
@@ -280,14 +285,15 @@ def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
 
 def make_rpn_train_step(model, cfg, stage=no_stage):
     """``step(state, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-    generator=None, shard=None) -> (state, losses)``; the sampler's draws are
-    ``uniforms`` (N, 2, R) or come from ``generator``."""
+    generator=None, shard=None, layout=None) -> (state, losses)``; the
+    sampler's draws are ``uniforms`` (N, 2, R, R over the whole scene's
+    anchors) or come from ``generator``."""
 
     def step(state: TrainState, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-             generator=None, shard=None):
+             generator=None, shard=None, layout=None):
         model.zero_grad(set_to_none=True)
         total, losses = rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask,
-                                   uniforms, generator, stage, shard)
+                                   uniforms, generator, stage, shard, layout)
         return apply_step(state, total, losses, stage, shard)
 
     return step

@@ -44,7 +44,7 @@ from instance_nerf_tpu_torch.models.fcos import (
     sigmoid,
 )
 from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
-from instance_nerf_tpu_torch.parallel.spatial import grid_layout, split_size
+from instance_nerf_tpu_torch.parallel.spatial import grid_layout
 from instance_nerf_tpu_torch.parallel.train_step import (
     TrainState,
     make_fcos_train_step,
@@ -257,11 +257,8 @@ class FCOSTrainer:
 
     def grid_layout(self, size: int):
         """The W layout of a train grid of W ``size`` on the mesh's spatial
-        axis (None without one); ``size`` must divide over it."""
-        layout = grid_layout(self.mesh, size, stage=self._train_stage)
-        if layout is not None:
-            split_size(size, layout.parts)
-        return layout
+        axis (None without one); raises where ``sp`` does not divide it."""
+        return grid_layout(self.mesh, size, stage=self._train_stage)
 
     def device_store(self, ds: RPNDataset) -> dict:
         """The split on the card, uploaded once a scene at a time: each scene

@@ -44,6 +44,7 @@ from instance_nerf_tpu_torch.parallel.train_step import (
 )
 from instance_nerf_tpu_torch.train.checkpoints import CheckpointManager, load_params_into
 from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
+from instance_nerf_tpu_torch.parallel.spatial import grid_layout
 from instance_nerf_tpu_torch.train.loop import device_batch, synthetic_batch, train_epochs
 from instance_nerf_tpu_torch.train.rcnn_trainer import init_rcnn_params, to_numpy
 from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, benchmark_steps, profile_ms
@@ -193,7 +194,9 @@ class RPNTrainer:
     def __init__(self, cfg: RPNConfig | None = None, device="cuda", mesh=None):
         """``mesh`` (or ``torchrun``'s, built as the FCOS trainer's): one rank
         of a data-parallel step, each rank its rows of every global batch,
-        the sampler's draws its rows of the global batch's."""
+        the sampler's draws its rows of the global batch's. A given mesh
+        with a spatial axis (``sp > 1``; ``torchrun``'s has none, as the
+        JAX trainer's) splits each train grid's W over its ``sp`` ranks."""
         self.cfg = cfg = cfg or RPNConfig()
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else launched_mesh(cfg.batch_size, self.device)
@@ -261,6 +264,11 @@ class RPNTrainer:
         return make_rpn_train_step(self.model, self.cfg,
                                    stage=stage or self._train_stage)
 
+    def grid_layout(self, size: int):
+        """The W layout of a train grid of W ``size`` on the mesh's spatial
+        axis (None without one); raises where ``sp`` does not divide it."""
+        return grid_layout(self.mesh, size, stage=self._train_stage)
+
     def train_loop(self) -> dict:
         """Train ``num_epochs`` epochs on the augmented train split (resuming
         from ``save_path``'s latest checkpoint with ``resume``); returns the
@@ -281,14 +289,18 @@ class RPNTrainer:
         box_dim = 7 if cfg.rotated_bbox else 6
         shard = batch_shard(self.mesh, cfg.batch_size)
         rows = None if shard is None else (shard.lo, shard.hi)
+        layout = self.grid_layout(cfg.resolution)
 
         def load(idx):
-            return ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim, augment=True,
-                            rows=rows)
+            b = ds.batch(idx, pad_shape, max_gt=cfg.max_gt, box_dim=box_dim, augment=True,
+                         rows=rows)
+            if layout is not None:
+                b.grids = np.ascontiguousarray(b.grids[:, layout.lo:layout.hi])
+            return b
 
         def step(batch):
             self.state, losses = step_fn(self.state, *device_batch(batch, self.device),
-                                         generator=self.gen, shard=shard)
+                                         generator=self.gen, shard=shard, layout=layout)
             return losses
 
         def save(gstep, metrics):
@@ -321,10 +333,14 @@ class RPNTrainer:
         shard = batch_shard(self.mesh, batch)
         if shard is not None:
             args = tuple(shard.take(a) for a in args)
+        layout = self.grid_layout(args[0].shape[1])
+        if layout is not None:
+            args = (layout.take(args[0]).contiguous(), *args[1:])
         step_fn = self.train_step_fn()
 
         def run():
-            self.state, metrics = step_fn(self.state, *args, generator=self.gen, shard=shard)
+            self.state, metrics = step_fn(self.state, *args, generator=self.gen, shard=shard,
+                                          layout=layout)
             return metrics
 
         return run
@@ -333,14 +349,17 @@ class RPNTrainer:
         """Train steps on the synthetic batch at ``shape`` (padded to 224 x
         224 x 160 by default) timed with CUDA events
         (``train/timing.py:benchmark_steps``): median and mean ms over ``reps``
-        warmed steps, scenes/s, peak device memory, every step's losses."""
+        warmed steps, scenes/s, peak device memory, every step's losses. Under
+        a mesh ``batch`` is the global batch, and with a spatial axis each
+        rank steps on its rows of the padded grid's W."""
         return benchmark_steps(self._card_train_step(batch, shape), self.device, batch,
                                reps=reps, warmup=warmup)
 
     def profile_train(self, reps=5, shape=(200, 200, 130), batch=4, warmup=2, top=12):
         """Where a train step's time goes (``train/timing.py:profile_ms``), by
         span: forward, loss (targets and sampling included), backward,
-        optimizer."""
+        allreduce (under a mesh), halo (on a spatial axis: the exchanges,
+        forward and backward), optimizer."""
         return profile_ms(self._card_train_step(batch, shape), self.device, self._train_stage,
                           reps=reps, warmup=warmup, top=top, watch=())
 

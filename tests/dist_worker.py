@@ -66,19 +66,27 @@ def _trainer(kind, cfg, mesh, swin=None, resnet=None):
 
 
 def detector_step(mesh, kind, cfg, params, batch, uniforms=None, dtype="float32", swin=None,
-                  resnet=None, update=True, grads_dtype=None):
+                  resnet=None, update=True, grads_dtype=None, n_spatial=None, record=False):
     """One train step of a detector trainer on the global ``batch`` (numpy
     arrays) from ``params`` (a state dict, the path of one, or None for the
     trainer's seeded init): under a process group the trainer builds its
     mesh as it does under ``torchrun`` (from ``cfg["batch_size"]`` and
-    ``cfg["n_spatial"]``) and steps on this rank's rows (of the scenes, and
-    of W on a spatial axis); ``swin`` and ``resnet`` as ``_trainer``'s,
+    ``cfg["n_spatial"]``), or the anchor RPN's is ``make_mesh``'s with
+    ``n_spatial`` ranks on W (its config has no spatial axis, as the JAX
+    one has none), and steps on this rank's rows (of the scenes, and of W
+    on a spatial axis); ``swin`` and ``resnet`` as ``_trainer``'s,
     ``update`` and ``grads_dtype`` (a dtype's name) as ``capture``'s.
-    Returns (metrics, the gradients the optimizer was given)."""
-    from instance_nerf_tpu_torch.parallel.mesh import batch_shard
+    Returns (metrics, the gradients the optimizer was given), and with
+    ``record`` (the RPN) a third item: this rank's anchors a level, labels
+    and sampled positive and negative masks (``models/rpn.py:sample_anchors``)."""
+    from instance_nerf_tpu_torch.models import rpn as rpn_model
+    from instance_nerf_tpu_torch.parallel.mesh import batch_shard, make_mesh
 
-    del mesh  # the trainer's own
-    tr = _trainer(kind, cfg, None, swin, resnet)
+    if kind == "rpn" and n_spatial and mesh is not None:
+        mesh = make_mesh(n_data=mesh.world // n_spatial, n_spatial=n_spatial, device="cpu")
+    else:
+        mesh = None  # the trainer's own
+    tr = _trainer(kind, cfg, mesh, swin, resnet)
     tr.init_state()
     if params is not None:
         tr.model.load_state_dict(torch.load(params, weights_only=True)
@@ -95,16 +103,95 @@ def detector_step(mesh, kind, cfg, params, batch, uniforms=None, dtype="float32"
     if uniforms is not None:
         u = torch.from_numpy(np.asarray(uniforms))
         kw["uniforms"] = u if shard is None else shard.take(u)
-    layout = tr.grid_layout(args[0].shape[1]) if kind == "fcos" else None
+    elif kind == "rpn":
+        kw["generator"] = tr.gen  # the trainer's seeded draws, on every rank alike
+    layout = tr.grid_layout(args[0].shape[1]) if kind in ("fcos", "rpn") else None
     if layout is not None:
         args[0] = layout.take(args[0]).contiguous()
         kw["layout"] = layout
     seen = capture(tr.state.tx, update, grads_dtype and getattr(torch, grads_dtype))
-    _, metrics = tr.train_step_fn()(tr.state, *args, **kw)
+    samples = []
+    sample = rpn_model.sample_anchors
+
+    def recorded(*a, **k):
+        out = sample(*a, **k)
+        samples.append({"level_counts": k["level_counts"], "labels": out[0], "pos": out[2].pos_mask,
+                        "neg": out[2].neg_mask})
+        return out
+
+    if record:
+        rpn_model.sample_anchors = recorded
+    try:
+        _, metrics = tr.train_step_fn()(tr.state, *args, **kw)
+    finally:
+        rpn_model.sample_anchors = sample
     grads = seen[0]
     if shard is not None and torch.distributed.get_rank() != 0:
         grads = {k: digest(v) for k, v in grads.items()}  # replicas: rank 0 keeps the tensors
-    return {k: float(v) for k, v in metrics.items()}, grads
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return (metrics, grads, samples[0]) if record else (metrics, grads)
+
+
+def rpn_train_loop(mesh, cfg, n_spatial=None):
+    """``RPNTrainer.train_loop`` on this rank in f64 (the model and every
+    batch's floats), its mesh ``make_mesh``'s with ``n_spatial`` ranks on W
+    (or the trainer's own): (params, Adam's first moments by name)."""
+    from instance_nerf_tpu_torch.parallel.mesh import make_mesh
+    from instance_nerf_tpu_torch.train import rpn_trainer
+
+    if n_spatial and mesh is not None:
+        mesh = make_mesh(n_data=mesh.world // n_spatial, n_spatial=n_spatial, device="cpu")
+    else:
+        mesh = None
+    tr = _trainer("rpn", cfg, mesh)
+    tr.model.double()
+    load = rpn_trainer.device_batch
+    rpn_trainer.device_batch = lambda *a: tuple(
+        x.double() if x.is_floating_point() else x for x in load(*a))
+    try:
+        tr.train_loop()
+    finally:
+        rpn_trainer.device_batch = load
+    return ({k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+            dict(zip(tr.state.tx.names, tr.state.tx.mu)))
+
+
+def spatial_collectives(mesh):
+    """``parallel/spatial.py``'s collectives over all ranks on W: rank q's
+    block of ``gather_over`` holds ``BLOCKS[q]`` rows (some empty), gathered
+    along dim 1 in f64 and int8; ``max_over`` of
+    rank-dependent values; a layout whose index is another rank's raises;
+    ``RPNTrainer.grid_layout`` of a W that ``sp`` divides and one it does
+    not."""
+    from instance_nerf_tpu_torch.parallel import spatial as SP
+    from instance_nerf_tpu_torch.parallel.mesh import make_mesh
+
+    world = mesh.world
+    mesh = make_mesh(n_data=1, n_spatial=world, device="cpu")
+    layout = SP.grid_layout(mesh, 40)
+    q = layout.index
+    x = (torch.arange(2 * BLOCKS[q] * 3, dtype=torch.float64).reshape(2, BLOCKS[q], 3)
+         + 100 * q)
+    out = {"gathered": SP.gather_over(x, layout, 1, BLOCKS[:world]),
+           "gathered_int8": SP.gather_over(x.to(torch.int8), layout, 1, BLOCKS[:world]),
+           "max": SP.max_over(torch.tensor([q, -q, 3.0 * (q % 2)]), layout)}
+    try:
+        SP.max_over(torch.zeros(1), layout._replace(index=(q + 1) % world))
+        out["other_rank_raised"] = False
+    except RuntimeError:
+        out["other_rank_raised"] = True
+    tr = _trainer("rpn", dict(backbone_type="vgg_AF", conv_depth=1), mesh)
+    out["layout"] = tuple(tr.grid_layout(48 * world))[:3]
+    try:
+        tr.grid_layout(48 * world + 1)
+        out["uneven_raised"] = False
+    except ValueError:
+        out["uneven_raised"] = True
+    return out
+
+
+# rows of rank q's block in ``spatial_collectives``
+BLOCKS = [3, 0, 2, 1]
 
 
 def digest(t: torch.Tensor) -> str:
@@ -200,7 +287,8 @@ def fleet_restore(mesh, cfg, n_scenes, path):
 
 
 FUNCTIONS = {f.__name__: f for f in (detector_step, run_cli, field_step, fleet_step,
-                                     fleet_train_save, fleet_restore)}
+                                     fleet_train_save, fleet_restore, rpn_train_loop,
+                                     spatial_collectives)}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -183,6 +183,7 @@ def test_box_helpers_match_jax():
     for jfn, tfn, x in ((JB.obb2poly_3d, TB.obb2poly_3d, obbs),
                         (JB.obb2points_3d, TB.obb2points_3d, obbs),
                         (JB.aabb2obb_3d, TB.aabb2obb_3d, aabbs),
+                        (JI.aabb2obb_3d, TI.aabb2obb_3d, aabbs),
                         (JB.box_centers, TB.box_centers, aabbs),
                         (JB.box_centers, TB.box_centers, obbs)):
         _close(tfn(_t(x)), jfn(jnp.asarray(x)), 1e-6)
