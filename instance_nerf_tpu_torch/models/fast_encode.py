@@ -28,6 +28,7 @@ from instance_nerf_tpu_torch.models.hashgrid import (
     scene_major_features,
     scene_major_points,
 )
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 
 def dense_trilinear(grid: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
@@ -70,40 +71,39 @@ def dense_trilinear(grid: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
 
 def brick_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
                  pallas_grad: bool = False, pallas_replicas: int = 1,
-                 table_cast: torch.dtype | None = None) -> torch.Tensor:
+                 table_cast: torch.dtype | None = None, stage=NO_STAGES) -> torch.Tensor:
     """Brick-hash encoding ``(L, T, 8, F)`` table -> ``(..., L * F)``: ONE
     gathered row per (point, level). Dense levels (res^3 <= T) index
     directly; finer levels hash the cell with the NGP primes. The flat
     index layout is ``(N, L)`` (trailing = 1); a fleet's ``(B, L, T, 8, F)``
     tables take ``(B, ..., 3)`` and lay out ``(N, B, L)``, B * L levels of
     one kernel launch. ``table_cast``: the rows are read in this dtype (a
-    bf16 table); the f32 table stays the master."""
+    bf16 table); the f32 table stays the master. ``stage``
+    (``train/timing.py:Stages``) uploads the host constants."""
     L, T, C, F = table.shape[-4:]
     lead = xyz.shape[:-1]
     x, b = scene_major_points(table, 4, xyz)
     n = x.shape[0]
     res_np = np.asarray(resolutions, np.int64)
-    resf = torch.as_tensor(res_np, dtype=x.dtype, device=x.device)
+    resf = stage.upload(res_np, x.device, x.dtype)
     offs = (np.arange(L, dtype=np.float64) + 1.0) / (L + 1.0)
-    offs_t = torch.as_tensor(offs / np.maximum(res_np, 1), dtype=x.dtype, device=x.device)
+    offs_t = stage.upload(offs / np.maximum(res_np, 1), x.device, x.dtype)
     p = (torch.clamp(x, 0.0, 1.0)[:, None, :] + offs_t[None, :, None]) * (
         resf[None, :, None] - 1.0)  # (N, L, 3)
     cell = torch.floor(p)
     frac = p - cell
-    c = torch.minimum(cell.to(torch.int64),
-                      torch.as_tensor(res_np - 1, device=x.device).view(1, L, 1))
-    flat = _level_flat(hash_cells(c, res_np, T).reshape(-1, b * L), b * L, T)
+    c = torch.minimum(cell.to(torch.int64), stage.upload(res_np - 1, x.device).view(1, L, 1))
+    flat = _level_flat(hash_cells(c, res_np, T, stage).reshape(-1, b * L), b * L, T)
     rows = gather_rows(table.reshape(b * L * T, C * F), flat, b * L, 1, pallas_grad,
                        pallas_replicas, table_cast)  # (N * L, C * F)
-    w = corner_weights(frac.reshape(-1, 3))  # (N * L, 8)
+    w = corner_weights(frac.reshape(-1, 3), stage)  # (N * L, 8)
     feats = (rows.view(n * L, C, F) * w[..., None]).sum(1)
     return scene_major_features(feats.reshape(n, L * F), b, lead)
 
 
-def pe_encode(xyz: torch.Tensor, n_freqs: int = 4) -> torch.Tensor:
+def pe_encode(xyz: torch.Tensor, n_freqs: int = 4, stage=NO_STAGES) -> torch.Tensor:
     """Low-frequency positional encoding -> (..., 6 * n_freqs)."""
-    freqs = torch.as_tensor((2.0 ** np.arange(n_freqs)) * np.pi, dtype=xyz.dtype,
-                            device=xyz.device)
+    freqs = stage.upload((2.0 ** np.arange(n_freqs)) * np.pi, xyz.device, xyz.dtype)
     ang = xyz[..., None, :] * freqs[:, None]
     out = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     return out.reshape(*xyz.shape[:-1], 6 * n_freqs)
@@ -159,12 +159,13 @@ class InstanceNGPFast(NGPHeads):
         in_dim = dense_features + n_levels * n_features + 6 * pe_freqs
         self._make_heads(in_dim, geo_feat_dim, hidden, num_instances, dtype, n_scenes)
 
-    def encode(self, xyz):
+    def encode(self, xyz, stage=NO_STAGES):
         return torch.cat([
             dense_trilinear(self.dense_grid, xyz),
             brick_encode(self.brick_table, xyz, self.resolutions,
                          pallas_grad=self.pallas_grad,
-                         pallas_replicas=self.pallas_replicas, table_cast=self.table_cast),
-            pe_encode(xyz, self.pe_freqs),
+                         pallas_replicas=self.pallas_replicas, table_cast=self.table_cast,
+                         stage=stage),
+            pe_encode(xyz, self.pe_freqs, stage),
         ], dim=-1)
 

@@ -38,6 +38,7 @@ from instance_nerf_tpu_torch.ops.rotated_iou import (
     cal_giou_3d,
     cal_iou_3d,
 )
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 INF = 1e8
 
@@ -488,7 +489,7 @@ def fcos_postprocess(
     pad_mask: torch.Tensor | None = None,
     use_obb: bool = False,
     nms_sweep=None,
-    stage=nms_ops.no_stage,
+    stage=NO_STAGES,
 ) -> Proposals:
     """Decode + filter proposals with static shapes, scene by scene.
 

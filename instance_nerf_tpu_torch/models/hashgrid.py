@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from instance_nerf_tpu_torch.kernels.scatter_cuda import gather_rows_kernel_grad
-from instance_nerf_tpu_torch.ops.nms import no_stage
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 # spatial hash primes (Instant-NGP eq. 4 convention)
 HASH_PRIMES = np.array([1, 2654435761, 805459861], dtype=np.uint32)
@@ -31,20 +31,22 @@ CORNER_OFFSETS = np.array(
 _U32 = 0xFFFFFFFF
 
 
-def hash_cells(c: torch.Tensor, res: np.ndarray, table_size: int) -> torch.Tensor:
+def hash_cells(c: torch.Tensor, res: np.ndarray, table_size: int,
+               stage=NO_STAGES) -> torch.Tensor:
     """Row of each integer cell ``c (..., L, [8,] 3)`` int64 in its level:
     dense index where ``res^3 <= T`` (decided on the host), else the NGP
-    hash ``(x * p0) ^ (y * p1) ^ (z * p2) mod 2^32 % T``."""
+    hash ``(x * p0) ^ (y * p1) ^ (z * p2) mod 2^32 % T``. ``stage``
+    (``train/timing.py:Stages``) uploads the host constants."""
     res_np = np.asarray(res, np.int64)
     extra = c.dim() - 2  # the level axis sits just before the corner/coord axes
     shape = (len(res_np),) + (1,) * (extra - 1)
-    r = torch.as_tensor(res_np, device=c.device).view(shape)
+    r = stage.upload(res_np, c.device).view(shape)
     cx, cy, cz = c[..., 0], c[..., 1], c[..., 2]
     idx_dense = (cx * r + cy) * r + cz
     p = [int(v) for v in HASH_PRIMES]
     h = (cx * p[0] & _U32) ^ (cy * p[1] & _U32) ^ (cz * p[2] & _U32)
     idx_hash = h % table_size
-    dense = torch.as_tensor(res_np ** 3 <= table_size, device=c.device).view(shape)
+    dense = stage.upload(res_np ** 3 <= table_size, c.device).view(shape)
     return torch.where(dense, idx_dense, idx_hash)
 
 
@@ -56,9 +58,9 @@ def _level_flat(idx: torch.Tensor, n_levels: int, table_size: int) -> torch.Tens
     return (idx + off).to(torch.int32).reshape(-1)
 
 
-def corner_weights(frac: torch.Tensor) -> torch.Tensor:
+def corner_weights(frac: torch.Tensor, stage=NO_STAGES) -> torch.Tensor:
     """Trilinear weights ``(M, 8)`` of the corner offsets from ``frac (M, 3)``."""
-    corners = torch.as_tensor(CORNER_OFFSETS.astype(bool), device=frac.device)
+    corners = stage.upload(CORNER_OFFSETS.astype(bool), frac.device)
     w = torch.where(corners[None], frac[:, None, :], 1.0 - frac[:, None, :])
     return w[..., 0] * w[..., 1] * w[..., 2]
 
@@ -96,7 +98,7 @@ def scene_major_features(feats: torch.Tensor, b: int, lead) -> torch.Tensor:
 
 
 def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
-                pallas_grad: bool = False) -> torch.Tensor:
+                pallas_grad: bool = False, stage=NO_STAGES) -> torch.Tensor:
     """Trilinear multiresolution hash encoding ``(L, T, F)`` table,
     ``(..., 3)`` points in [0, 1] -> ``(..., L * F)``; a fleet's ``(B, L, T,
     F)`` tables take ``(B, ..., 3)``.
@@ -106,22 +108,23 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
     minor, which the kernel's level split relies on (trailing = 8); a
     fleet's is ``(N, B, L, 8)``, B * L levels. The JAX package chunks large
     batches under ``lax.map``; that changes nothing numerically, and the
-    port encodes a batch in one pass."""
+    port encodes a batch in one pass. ``stage`` (``train/timing.py:Stages``)
+    uploads the host constants, six waits on the card a call."""
     L, T, F = table.shape[-3:]
     lead = xyz.shape[:-1]
     x, b = scene_major_points(table, 3, xyz)
     n = x.shape[0]
     res_np = np.asarray(resolutions, np.int64)
-    resf = torch.as_tensor(res_np, dtype=x.dtype, device=x.device)
+    resf = stage.upload(res_np, x.device, x.dtype)
     p = x[:, None, :] * (resf[None, :, None] - 1.0)  # (N, L, 3)
     p0 = torch.floor(p)
     frac = p - p0
-    corners = torch.as_tensor(CORNER_OFFSETS.astype(np.int64), device=x.device)
+    corners = stage.upload(CORNER_OFFSETS.astype(np.int64), x.device)
     c = p0.to(torch.int64)[:, :, None, :] + corners[None, None]  # (N, L, 8, 3)
-    c = torch.minimum(c, torch.as_tensor(res_np - 1, device=x.device).view(1, L, 1, 1))
-    flat = _level_flat(hash_cells(c, res_np, T).reshape(-1, b * L, 8), b * L, T)
+    c = torch.minimum(c, stage.upload(res_np - 1, x.device).view(1, L, 1, 1))
+    flat = _level_flat(hash_cells(c, res_np, T, stage).reshape(-1, b * L, 8), b * L, T)
     gathered = gather_rows(table.reshape(b * L * T, F), flat, b * L, 8, pallas_grad)
-    w = corner_weights(frac.reshape(-1, 3))  # (N * L, 8)
+    w = corner_weights(frac.reshape(-1, 3), stage)  # (N * L, 8)
     feats = (gathered.view(n * L, 8, F) * w[..., None]).sum(1)
     return scene_major_features(feats.reshape(n, L * F), b, lead)
 
@@ -212,9 +215,9 @@ class NGPHeads(nn.Module):
         h = dense(self.sigma_1, h, self.dtype)
         return h[..., 0], h[..., 1:]
 
-    def query(self, xyz):
+    def query(self, xyz, stage=NO_STAGES):
         """(..., 3) -> (sigma_raw (...,), geo (..., geo_feat_dim))."""
-        return self.sigma_head(self.encode(xyz))
+        return self.sigma_head(self.encode(xyz, stage))
 
     def color(self, geo, viewdir):
         sh = sh_encode_deg2(viewdir)
@@ -229,11 +232,12 @@ class NGPHeads(nn.Module):
         h = torch.relu(dense(self.inst_0, geo.detach(), self.dtype))
         return dense(self.inst_1, h, self.dtype)
 
-    def forward(self, xyz, viewdir, with_instance: bool = True, stage=no_stage):
-        """-> (sigma_raw, rgb, instance logits or None); ``stage(name)``
-        opens the ``encode`` and ``mlp`` spans."""
+    def forward(self, xyz, viewdir, with_instance: bool = True, stage=NO_STAGES):
+        """-> (sigma_raw, rgb, instance logits or None); ``stage``
+        (``train/timing.py:Stages``) opens the ``encode`` and ``mlp`` spans
+        and the encoding's ``wait`` spans."""
         with stage("encode"):
-            h = self.encode(xyz)
+            h = self.encode(xyz, stage)
         with stage("mlp"):
             sigma_raw, geo = self.sigma_head(h)
             rgb = self.color(geo, viewdir)
@@ -262,6 +266,6 @@ class InstanceNGP(NGPHeads):
         self._make_heads(n_levels * n_features, geo_feat_dim, hidden, num_instances, dtype,
                          n_scenes)
 
-    def encode(self, xyz):
+    def encode(self, xyz, stage=NO_STAGES):
         return hash_encode(self.hash_table, xyz, self.resolutions,
-                           pallas_grad=self.pallas_grad)
+                           pallas_grad=self.pallas_grad, stage=stage)

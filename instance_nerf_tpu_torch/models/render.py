@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from instance_nerf_tpu_torch.models.hashgrid import density_activation
-from instance_nerf_tpu_torch.ops.nms import no_stage
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 
 def camera_rays(c2w: torch.Tensor, intrinsics, hw, pixel_idx=None):
@@ -205,15 +205,18 @@ def sample_points(o, d, n_samples: int, near, far, stratified: bool = True,
     return xyz, t, dt.expand(t.shape)
 
 
-def composite(sigma_raw, rgb, inst_logits, t, dt, occ_mask=None, valid=None) -> RenderOut:
+def composite(sigma_raw, rgb, inst_logits, t, dt, occ_mask=None, valid=None,
+              stage=NO_STAGES) -> RenderOut:
     """Alpha compositing; instance logits composite like color, through
     DETACHED weights, with the residual transmittance credited to the
-    background class (index 0) as +10."""
+    background class (index 0) as +10. The backward of ``cumprod`` reads
+    whether any factor is 0 back to the host: ``stage`` opens a ``wait``
+    span around it."""
     sigma = density_activation(sigma_raw)
     if occ_mask is not None:
         sigma = sigma * occ_mask
     alpha = 1.0 - torch.exp(-sigma * dt)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    trans = stage.wait_in_backward(torch.cumprod(1.0 - alpha + 1e-10, dim=-1))
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alpha * trans  # (..., R, S)
     if valid is not None:
@@ -264,7 +267,7 @@ def _first_occupied(occ_all, k: int):
 
 
 def _compact_render(model_apply, origins, dirs, t, dt, occ_all, occ, k: int,
-                    with_instance, valid, use_fine_mask: bool, stage=no_stage,
+                    with_instance, valid, use_fine_mask: bool, stage=NO_STAGES,
                     pad_k: int = 0) -> RenderOut:
     """Fixed-K compaction + field query + composite; the weights are
     zero-padded to ``pad_k`` columns so that buckets of different K
@@ -275,7 +278,7 @@ def _compact_render(model_apply, origins, dirs, t, dt, occ_all, occ, k: int,
     sigma_raw, rgb, logits = model_apply(xyz_k, vd)
     with stage("composite_loss"):
         return _pad_weights(composite(sigma_raw, rgb, logits if with_instance else None,
-                                      t_k, dt_k, keep_f, valid.to(t.dtype)), pad_k)
+                                      t_k, dt_k, keep_f, valid.to(t.dtype), stage), pad_k)
 
 
 def _pad_weights(out: RenderOut, pad_k: int) -> RenderOut:
@@ -376,7 +379,7 @@ def _bucket_render(model_apply, origins, dirs, t, dt, occ_all, occ, valid, k_buc
                                 rgb[..., m, :].reshape(*lead, n, k, 3),
                                 (logits[..., m, :].reshape(*lead, n, k, -1)
                                  if with_instance else None),
-                                t_k, dt_k, keep_f, v.to(t.dtype))
+                                t_k, dt_k, keep_f, v.to(t.dtype), stage)
                 outs.append(_pad_weights(out, pad_k))
     else:
         for (n, k), sel in zip(sizes, sels):
@@ -395,7 +398,7 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
                 with_instance: bool = True, k_occupied: int | None = None,
                 occ_coarse_res: int | None = None, k_buckets: tuple | None = None,
                 fuse_buckets: bool = True, ray_jitter: bool = False, generator=None,
-                jitter=None, stage=no_stage, route=None) -> RenderOut:
+                jitter=None, stage=NO_STAGES, route=None) -> RenderOut:
     """Full render: AABB clip -> stratified samples -> occupancy -> (fixed-K
     compaction) -> field query -> composite. ``model_apply(xyz, viewdir)``
     returns (sigma_raw, rgb, instance_logits or None).
@@ -447,4 +450,4 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
     with stage("composite_loss"):
         occ_mask = occ.occupied(xyz_c) if occ is not None else None
         return composite(sigma_raw, rgb, logits if with_instance else None,
-                         t, dt, occ_mask, valid.to(xyz.dtype))
+                         t, dt, occ_mask, valid.to(xyz.dtype), stage)

@@ -48,6 +48,7 @@ from instance_nerf_tpu_torch.ops.projection import projection_loss_points
 from instance_nerf_tpu_torch.ops.rotated_iou import cal_diou_3d, cal_giou_3d, cal_iou_3d
 from instance_nerf_tpu_torch.ops.sampling import SampleResult, balanced_sample, match_proposals
 from instance_nerf_tpu_torch.parallel.spatial import gather_over, max_over
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 DEFAULT_ANCHOR_SIZES = ((8.0,), (16.0,), (32.0,), (64.0,))
 DEFAULT_ASPECT_RATIOS = (
@@ -381,7 +382,7 @@ def filter_proposals(
     pad_mask: torch.Tensor | None = None,
     rotated: bool = False,
     nms_sweep=None,
-    stage=nms_ops.no_stage,
+    stage=NO_STAGES,
 ) -> RPNProposals:
     """Decode + per-level top-n + clip + per-LEVEL NMS + global top-n.
 

@@ -16,19 +16,13 @@ inputs.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from instance_nerf_tpu_torch.kernels.nms_cuda import MAX_K, nms_boxes, nms_sweep
 from instance_nerf_tpu_torch.ops.rotated_iou import pairwise_iou_3d
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 NEG_INF = -1e30
-
-
-def no_stage(name):
-    """Default ``stage``: no span."""
-    return contextlib.nullcontext()
 
 
 def nms_mask(
@@ -37,7 +31,7 @@ def nms_mask(
     iou_threshold: float,
     valid: torch.Tensor | None = None,
     sweep=None,
-    stage=no_stage,
+    stage=NO_STAGES,
 ) -> torch.Tensor:
     """Greedy NMS; returns a bool keep mask of shape ``(N,)``.
 
@@ -93,7 +87,7 @@ def batched_nms_mask(
     iou_threshold: float,
     valid: torch.Tensor | None = None,
     sweep=None,
-    stage=no_stage,
+    stage=NO_STAGES,
 ) -> torch.Tensor:
     """Per-category NMS via the coordinate-offset trick: one fixed-shape
     pass that equals running NMS independently per class. AABBs shift all

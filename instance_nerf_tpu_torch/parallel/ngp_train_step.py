@@ -33,9 +33,9 @@ import numpy as np
 import torch
 
 from instance_nerf_tpu_torch.models.render import OccupancyGrid, bucket_sizes, render_rays
-from instance_nerf_tpu_torch.ops.nms import no_stage
 from instance_nerf_tpu_torch.parallel.mesh import all_reduce_sum, distributed, forward_sum
 from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig, partial_sums, sums_to_losses
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 def rank_generator(seed: int, rank: int, device) -> torch.Generator:
     """The ray-sharded step's generator of rank ``rank``: seeded from
@@ -47,7 +47,7 @@ def rank_generator(seed: int, rank: int, device) -> torch.Generator:
 
 def sharded_ngp_loss_and_grads(model, cfg: NGPConfig, stage: str, occ: OccupancyGrid, o, d,
                                target_rgb, target_inst, group=None, stratified: bool = True,
-                               generator=None, jitter=None, stages=no_stage):
+                               generator=None, jitter=None, stages=NO_STAGES):
     """The single-scene field's losses and gradients over rays split across
     the ranks of ``group`` (this rank's ``(R_local, 3)`` block): the JAX
     ``make_sharded_ngp_step``'s loss. ``k_buckets`` routes this rank's own
@@ -115,7 +115,7 @@ def group_route(k_buckets, group, n_ranks: int, index: int):
 
 def multiscene_loss_and_grads(model, cfg: NGPConfig, stage: str, occ_grids, o, d,
                               target_rgb, target_inst, generator=None, jitter=None,
-                              stages=no_stage, group=None, route=None):
+                              stages=NO_STAGES, group=None, route=None):
     """Per-scene losses ``{name: (B,)}`` and ``{param name: grad or None}`` of
     one fleet batch (rays ``(B, R, 3)``, grids ``(B, G, G, G)``): the
     gradient of the sum over scenes of each scene's total. ``jitter``

@@ -47,7 +47,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 
-from instance_nerf_tpu_torch.ops.nms import no_stage
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 
 def same_pads(size: int, kernel: int, stride: int):
@@ -78,7 +78,7 @@ class WLayout(NamedTuple):
     index: int
     group: object = None
     ranks: tuple = ()
-    stage: object = no_stage
+    stage: object = NO_STAGES
     stats: dict | None = None
 
     @property
@@ -336,7 +336,7 @@ def grid_layout(mesh, size: int, stage=None) -> WLayout | None:
     split_size(size, mesh.n_spatial)
     ranks = tuple(r for r, c in enumerate(mesh.coords) if c[:2] == mesh.coord[:2])
     return WLayout(int(size), mesh.n_spatial, mesh.sp_index, mesh.sp_group, ranks,
-                   stage or no_stage, mesh.halo)
+                   stage or NO_STAGES, mesh.halo)
 
 
 def split_size(size: int, parts: int) -> int:

@@ -47,8 +47,8 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from instance_nerf_tpu_torch.models.fcos import fcos_loss, padding_mask
 from instance_nerf_tpu_torch.models.rpn import anchor_padding_mask, rpn_loss
-from instance_nerf_tpu_torch.ops.nms import no_stage
 from instance_nerf_tpu_torch.parallel.mesh import all_reduce_sum, distributed
+from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
 
 def cosine_onecycle_schedule(transition_steps: int, peak_value: float,
@@ -174,7 +174,7 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def apply_step(state: TrainState, total: torch.Tensor, losses: dict, stage=no_stage,
+def apply_step(state: TrainState, total: torch.Tensor, losses: dict, stage=NO_STAGES,
                shard=None):
     """Backward ``total`` and update: (state, metrics on the device). Under a
     process group with a ``shard``, the gradients and metrics are first
@@ -208,7 +208,7 @@ def gradient_bytes(state: TrainState) -> int:
 def fcos_losses(model, grids, grid_sizes, gt_boxes, gt_mask, reg_loss_weight: float = 1.0,
                 center_sampling_radius: float = 1.5, iou_loss_type: str = "iou",
                 use_obb: bool = False, use_additional_l1_loss: bool = False,
-                proj2d_loss_weight: float = 0.0, remat: bool = False, stage=no_stage,
+                proj2d_loss_weight: float = 0.0, remat: bool = False, stage=NO_STAGES,
                 shard=None, layout=None):
     """One FCOS forward and loss: (total, losses). ``remat`` recomputes the
     forward in the backward (``torch.utils.checkpoint``); ``shard``: these
@@ -238,7 +238,7 @@ def make_fcos_train_step(model, reg_loss_weight: float = 1.0,
                          center_sampling_radius: float = 1.5, iou_loss_type: str = "iou",
                          use_obb: bool = False, use_additional_l1_loss: bool = False,
                          proj2d_loss_weight: float = 0.0, remat: bool = False,
-                         stage=no_stage):
+                         stage=NO_STAGES):
     """``step(state, grids, grid_sizes, gt_boxes, gt_mask, shard=None,
     layout=None) -> (state, metrics)``: the losses, ``total`` and
     ``num_pos``."""
@@ -258,7 +258,7 @@ def make_fcos_train_step(model, reg_loss_weight: float = 1.0,
 
 
 def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
-               generator=None, stage=no_stage, shard=None, layout=None):
+               generator=None, stage=NO_STAGES, shard=None, layout=None):
     """One anchor-RPN forward and loss: (total, losses with ``total``).
     ``cfg`` is an ``RPNConfig``; only its loss and matching fields are read.
     ``layout``: the grids' W layout on the mesh's spatial axis (with
@@ -283,7 +283,7 @@ def rpn_losses(model, cfg, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
     return total, losses
 
 
-def make_rpn_train_step(model, cfg, stage=no_stage):
+def make_rpn_train_step(model, cfg, stage=NO_STAGES):
     """``step(state, grids, grid_sizes, gt_boxes, gt_mask, uniforms=None,
     generator=None, shard=None, layout=None) -> (state, losses)``; the
     sampler's draws are ``uniforms`` (N, 2, R, R over the whole scene's

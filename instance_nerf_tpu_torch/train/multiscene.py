@@ -207,34 +207,36 @@ class MultiSceneFieldTrainer:
         ``_batch``, the rays computed from them by ``_rays`` on the device."""
         b, r = self.n_global, self.cfg.n_rays
         h, w = self._hw
-        v = (self.np_rng.random((b, r)) * self._nview_all[:, None]).astype(np.int64)
-        pix = self.np_rng.integers(0, h * w, (b, r))
-        v, pix = v[self._sl, self._rl], pix[self._sl, self._rl]
-        b, r = v.shape
-        lin = self._pix_off[:, None] + v * (h * w) + pix
-        rgb = self._rgb_all[lin].astype(np.float32)
-        inst = self._inst_all[lin] if self._inst_all is not None else np.zeros((b, r), np.int32)
+        with self._stage("draw"):
+            v = (self.np_rng.random((b, r)) * self._nview_all[:, None]).astype(np.int64)
+            pix = self.np_rng.integers(0, h * w, (b, r))
+            v, pix = v[self._sl, self._rl], pix[self._sl, self._rl]
+            b, r = v.shape
+            lin = self._pix_off[:, None] + v * (h * w) + pix
+            rgb = self._rgb_all[lin].astype(np.float32)
+            inst = (self._inst_all[lin] if self._inst_all is not None
+                    else np.zeros((b, r), np.int32))
+        up = self._stage.upload
         with self._stage("rays"):
-            o, d = self._rays(torch.as_tensor(v, device=self.device),
-                              torch.as_tensor(pix, device=self.device))
-            return [o, d, torch.as_tensor(rgb, device=self.device),
-                    torch.as_tensor(inst, device=self.device)]
+            o, d = self._rays(up(v, self.device), up(pix, self.device))
+            return [o, d, up(rgb, self.device), up(inst, self.device)]
 
     def _scan_batch(self, k: int):
         """A call's ``(K, B, R)`` view and pixel draws and targets, in the
         JAX trainer's ``_scan_batch`` order (all views, then all pixels)."""
         b, r = self.n_global, self.cfg.n_rays
         h, w = self._hw
-        v = (self.np_rng.random((k, b, r)) * self._nview_all[None, :, None]).astype(np.int32)
-        pix = self.np_rng.integers(0, h * w, (k, b, r)).astype(np.int32)
-        v, pix = v[:, self._sl, self._rl], pix[:, self._sl, self._rl]
-        b, r = v.shape[1:]
-        lin = self._pix_off[None, :, None] + v.astype(np.int64) * (h * w) + pix
-        rgb = self._rgb_all[lin].astype(np.float32)
-        inst = (self._inst_all[lin].astype(np.int32) if self._inst_all is not None
-                else np.zeros((k, b, r), np.int32))
+        with self._stage("draw"):
+            v = (self.np_rng.random((k, b, r)) * self._nview_all[None, :, None]).astype(np.int32)
+            pix = self.np_rng.integers(0, h * w, (k, b, r)).astype(np.int32)
+            v, pix = v[:, self._sl, self._rl], pix[:, self._sl, self._rl]
+            b, r = v.shape[1:]
+            lin = self._pix_off[None, :, None] + v.astype(np.int64) * (h * w) + pix
+            rgb = self._rgb_all[lin].astype(np.float32)
+            inst = (self._inst_all[lin].astype(np.int32) if self._inst_all is not None
+                    else np.zeros((k, b, r), np.int32))
         with self._stage("rays"):
-            return [torch.as_tensor(x, device=self.device) for x in (v, pix, rgb, inst)]
+            return [self._stage.upload(x, self.device) for x in (v, pix, rgb, inst)]
 
     def _device_batch(self):
         """One batch drawn on the card from the ``device_data`` store."""
@@ -295,7 +297,8 @@ class MultiSceneFieldTrainer:
         (``_scan_batch``); other steps draw one host batch each
         (``_batch``), as the JAX trainer's scan and remainder paths do.
         Outside the instance stage the occupancy refresh follows every call
-        that ends on a multiple of ``occ_update_every``."""
+        that ends on a multiple of ``occ_update_every``. Host draws open the
+        ``draw`` span, and reading the metrics back a ``wait`` span."""
         cfg = self.cfg
         t0 = time.time()
         last = {}
@@ -315,9 +318,9 @@ class MultiSceneFieldTrainer:
             if log_every and (done % log_every < spc or done >= steps) and is_main():
                 rate = self.n_global * cfg.n_rays * done / (time.time() - t0)
                 log(f"[ms-{stage}] step {done}: " + " ".join(
-                    f"{k2}={float(v):.4f}" for k2, v in last.items())
+                    f"{k2}={v:.4f}" for k2, v in self._stage.read_back(last).items())
                     + f" ({rate:.0f} rays/s aggregate)")
-        return {k2: float(v) for k2, v in last.items()}
+        return self._stage.read_back(last)
 
     @torch.no_grad()
     def sigma(self, xyz: torch.Tensor) -> torch.Tensor:
@@ -325,7 +328,8 @@ class MultiSceneFieldTrainer:
         chunks of ``OCC_QUERY_POINTS`` points over the fleet."""
         b, m = xyz.shape[:2]
         step = max(1, OCC_QUERY_POINTS // b)
-        return torch.cat([density_activation(self.model.query(xyz[:, i:i + step])[0]).float()
+        return torch.cat([density_activation(self.model.query(xyz[:, i:i + step],
+                                                              self._stage)[0]).float()
                           for i in range(0, m, step)], dim=1)
 
     @torch.no_grad()
@@ -347,12 +351,12 @@ class MultiSceneFieldTrainer:
                 if cells is None:
                     cells = torch.randint(0, g ** 3, (self.n_global, m), generator=self.gen,
                                           device=dev)[self._sl]
-                cells = torch.as_tensor(cells, device=dev).long()
+                cells = self._stage.upload(cells, dev).long()
                 coords = torch.stack([cells // (g * g), (cells // g) % g, cells % g], dim=-1)
             if jitter is None:
                 jitter = torch.rand((self.n_global, *coords.shape[1:]), generator=self.gen,
                                     device=dev)[self._sl]
-            xyz = (coords.to(torch.float32) + torch.as_tensor(jitter, device=dev)) / g
+            xyz = (coords.to(torch.float32) + self._stage.upload(jitter, dev)) / g
             sig = self.sigma(xyz)  # (B, M)
             flat = self.occ_grids.reshape(b, g ** 3) * 0.95
             if cfg.occ_subsample >= 1.0:

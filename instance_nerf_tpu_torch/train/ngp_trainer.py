@@ -46,7 +46,7 @@ from instance_nerf_tpu_torch.models.render import (
     sample_points,
     update_occupancy,
 )
-from instance_nerf_tpu_torch.train.timing import Stages, benchmark_ms, profile_ms
+from instance_nerf_tpu_torch.train.timing import NO_STAGES, Stages, benchmark_ms, profile_ms
 
 
 @dataclass
@@ -105,11 +105,12 @@ def fast_ngp_config(**overrides) -> NGPConfig:
     return NGPConfig(**base)
 
 
-def rays_multi(poses: torch.Tensor, views, pix, scene: NeRFScene):
+def rays_multi(poses: torch.Tensor, views, pix, scene: NeRFScene, stage=NO_STAGES):
     """Rays for a mixed-view batch: ``poses (V, 4, 4)`` on the device, view
-    and flat pixel ids per ray -> (origins (R, 3), unit dirs (R, 3))."""
-    views = torch.as_tensor(views, device=poses.device)
-    pix = torch.as_tensor(pix, device=poses.device)
+    and flat pixel ids per ray -> (origins (R, 3), unit dirs (R, 3)).
+    ``stage`` (``train/timing.py:Stages``) uploads host ids."""
+    views = stage.upload(views, poses.device)
+    pix = stage.upload(pix, poses.device)
     c2w = poses[views]  # (R, 4, 4)
     fx, fy, cx, cy = (float(v) for v in scene.intrinsics)
     h, w = scene.hw
@@ -339,8 +340,8 @@ class InstanceFieldTrainer:
     def loss_and_grads(self, stage: str, o, d, target_rgb, target_inst, jitter=None):
         """Losses and ``{name: grad or None}`` of one batch (None where no
         gradient flowed). ``jitter`` replaces the stratified draws."""
-        target_rgb = torch.as_tensor(target_rgb, dtype=torch.float32, device=self.device)
-        target_inst = torch.as_tensor(target_inst, device=self.device)
+        target_rgb = self._stage.upload(target_rgb, self.device, torch.float32)
+        target_inst = self._stage.upload(target_inst, self.device)
         out = self.render(o, d, with_instance=stage != "rgb", jitter=jitter)
         with self._stage("composite_loss"):
             losses = field_losses(out, target_rgb, target_inst, stage, self.cfg)
@@ -363,7 +364,7 @@ class InstanceFieldTrainer:
 
     @torch.no_grad()
     def sigma(self, xyz):
-        sigma_raw, _ = self.model.query(xyz)
+        sigma_raw, _ = self.model.query(xyz, self._stage)
         return density_activation(sigma_raw)
 
     @torch.no_grad()
@@ -375,13 +376,16 @@ class InstanceFieldTrainer:
     def _batch(self, scene: NeRFScene, poses: torch.Tensor, drawn=None):
         """The next ray batch of ``scene`` from the trainer's numpy stream
         (or the ``drawn`` one) on the device."""
-        v, pix, rgb, inst = drawn or scene.ray_batch(self.np_rng, self.cfg.n_rays)
+        if drawn is None:
+            with self._stage("draw"):
+                drawn = scene.ray_batch(self.np_rng, self.cfg.n_rays)
+        v, pix, rgb, inst = drawn
         if inst is None:
             inst = np.zeros((self.cfg.n_rays,), np.int32)
         with self._stage("rays"):
-            o, d = rays_multi(poses, v, pix, scene)
-            rgb_t = torch.as_tensor(rgb, device=self.device)
-            inst_t = torch.as_tensor(inst, device=self.device)
+            o, d = rays_multi(poses, v, pix, scene, self._stage)
+            rgb_t = self._stage.upload(rgb, self.device)
+            inst_t = self._stage.upload(inst, self.device)
         return o, d, rgb_t, inst_t
 
     # -- training -------------------------------------------------------------
@@ -427,13 +431,15 @@ class InstanceFieldTrainer:
         stream first, in the order single steps draw them, then steps.
         Outside the instance stage the occupancy grid is refreshed after a
         call that ends on a multiple of ``occ_update_every``, as the JAX
-        trainer does."""
+        trainer does. The host ray draws of a call open the ``draw`` span,
+        and reading the metrics back a ``wait`` span."""
         cfg = self.cfg
-        poses = torch.as_tensor(scene.poses, dtype=torch.float32, device=self.device)
+        poses = self._stage.upload(scene.poses, self.device, torch.float32)
         t0 = time.time()
         last = {}
         for k, done, spc in chunk_sizes(steps, stage, cfg, steps_per_call):
-            drawn = [scene.ray_batch(self.np_rng, cfg.n_rays) for _ in range(k)]
+            with self._stage("draw"):
+                drawn = [scene.ray_batch(self.np_rng, cfg.n_rays) for _ in range(k)]
             for batch in drawn:
                 last = self.train_step(stage, *self._batch(scene, poses, batch))
             if stage != "instance" and done % cfg.occ_update_every == 0:
@@ -441,9 +447,12 @@ class InstanceFieldTrainer:
             if log_every and (done % log_every < spc or done >= steps):
                 rate = cfg.n_rays * done / (time.time() - t0)
                 log(f"[{stage}] step {done}: " + " ".join(
-                    f"{k}={float(v):.4f}" for k, v in last.items() if k != "total")
+                    f"{k}={v:.4f}" for k, v in self._read_back(last).items())
                     + f" ({rate:.0f} rays/s)")
-        return {k: float(v) for k, v in last.items() if k != "total"}
+        return self._read_back(last)
+
+    def _read_back(self, losses: dict) -> dict:
+        return self._stage.read_back({k: v for k, v in losses.items() if k != "total"})
 
     @contextlib.contextmanager
     def _restored(self):

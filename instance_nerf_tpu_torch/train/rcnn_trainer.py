@@ -50,7 +50,6 @@ from instance_nerf_tpu_torch.models.rcnn import (
 )
 from instance_nerf_tpu_torch.models.layers import Conv3d, GroupNorm, LayerNorm, Linear
 from instance_nerf_tpu_torch.models.swin import ShiftedWindowAttention3D
-from instance_nerf_tpu_torch.ops.nms import no_stage
 from instance_nerf_tpu_torch.parallel.train_step import TrainState, apply_step, make_optimizer
 from instance_nerf_tpu_torch.train.checkpoints import (
     CheckpointManager,
@@ -60,6 +59,7 @@ from instance_nerf_tpu_torch.train.checkpoints import (
 from instance_nerf_tpu_torch.parallel.mesh import batch_shard, launched_mesh
 from instance_nerf_tpu_torch.train.loop import device_batch, device_indices, train_epochs
 from instance_nerf_tpu_torch.train.timing import (
+    NO_STAGES,
     Stages,
     benchmark_ms,
     benchmark_train_steps,
@@ -183,7 +183,7 @@ def init_rcnn_params(model: NeRF_RCNN, seed: int) -> None:
 
 
 def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid, gt_boxes,
-                gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=no_stage,
+                gt_labels, gt_mask, gt_vmasks, uniforms=None, generator=None, stage=NO_STAGES,
                 precomputed_feats: bool = False, shard=None):
     """One RoI-head forward and loss (the JAX package's ``make_rcnn_step_fn``
     body): sample the rois (``uniforms`` (N, 2, P + K) per scene, else drawn
@@ -242,7 +242,7 @@ def rcnn_losses(model, cfg, mask_slots: int, grids, grid_sizes, rois, roi_valid,
                    "num_pos": s.pos.sum(), "cls_acc": acc, "fg_cls_acc": fg_acc}
 
 
-def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=no_stage,
+def make_rcnn_step_fn(model, cfg, mask_slots: int, stage=NO_STAGES,
                       precomputed_feats: bool = False):
     """``step(state, grids, grid_sizes, rois, roi_valid, gt_boxes, gt_labels,
     gt_mask, gt_vmasks, uniforms=None, generator=None, shard=None) ->

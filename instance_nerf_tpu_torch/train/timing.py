@@ -1,8 +1,14 @@
 """Stage spans and timing on the card, shared by the port's trainers.
 
 ``Stages`` opens a ``torch.profiler`` range ``<prefix>.<name>`` around each
-stage of an inference path or a training step and, while a profile
-collects, CUDA events too.
+stage of an inference path or a training step while a profiler collects,
+and CUDA events while ``profile_ms`` times the stages; otherwise a span
+costs one check of torch's profiler flag. Where the host blocks on the
+card (a copy from host memory, ``.cpu()``, ``.item()``, ``float()`` of a
+card tensor, a synchronise, one inside an operation's backward) the path
+opens a ``wait`` span inside the stage it sits in; ``Stages.upload`` is the
+uploads' ``torch.as_tensor``, ``Stages.read_back`` their ``float``, and
+``Stages.wait_in_backward`` marks a backward.
 ``benchmark_ms`` and ``profile_ms`` time a zero-argument callable that
 runs the path once; ``benchmark_train_steps`` adds a train step's model
 FLOPs and MFU.
@@ -19,18 +25,28 @@ from torch.profiler import record_function
 from instance_nerf_tpu_torch.utils.hbm import GIB, step_stats
 
 
-class Stages:
-    """Named spans of an inference path: call it with a stage name to get a
-    context manager."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self, prefix: str):
+
+class Stages:
+    """Named spans of an inference path or a training step: call it with a
+    stage name to get a context manager. ``prefix`` None opens no span
+    (``NO_STAGES``, the default of the paths that take one)."""
+
+    def __init__(self, prefix: str | None):
         self.prefix = prefix
         # name -> [(start, end) CUDA events], filled while a profile runs
         self.events = None
 
-    @contextlib.contextmanager
     def __call__(self, name: str):
-        with record_function(f"{self.prefix}.{name}"):
+        traced = self.prefix is not None and torch.autograd._profiler_enabled()
+        if not traced and self.events is None:
+            return _NO_SPAN
+        return self._span(name, traced)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, traced: bool):
+        with record_function(f"{self.prefix}.{name}") if traced else _NO_SPAN:
             if self.events is None:
                 yield
                 return
@@ -40,6 +56,62 @@ class Stages:
             yield
             end.record()
             self.events.setdefault(name, []).append((start, end))
+
+    def upload(self, x, device, dtype=None) -> torch.Tensor:
+        """``torch.as_tensor(x, dtype=dtype, device=device)``, inside a
+        ``wait`` span where ``x`` is not a tensor on a device of that type
+        already: a copy from pageable host memory to the card synchronises
+        the stream, so the host waits for every queued kernel."""
+        if torch.is_tensor(x) and x.device.type == torch.device(device).type:
+            return torch.as_tensor(x, dtype=dtype, device=device)
+        with self("wait"):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def read_back(self, values: dict) -> dict:
+        """``{name: float(tensor)}`` inside a ``wait`` span: reading a card
+        tensor waits for every queued kernel."""
+        with self("wait"):
+            return {k: float(v) for k, v in values.items()}
+
+    def wait_in_backward(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, with a ``wait`` span around the backward of the operation
+        that made it (autograd's node, which runs on the backward's
+        thread), for an operation whose backward reads from the card. Hooks
+        are set only while a span would open: a tensor without gradient, or
+        a step with neither profiler nor ``profile_ms`` running, is left
+        as it is."""
+        traced = self.prefix is not None and torch.autograd._profiler_enabled()
+        node = t.grad_fn
+        if node is None or not traced and self.events is None:
+            return t
+        opened = []
+
+        def enter(grad_outputs):
+            span = self._span("wait", traced)
+            span.__enter__()
+            opened.append(span)
+
+        def leave(grad_inputs, grad_outputs):
+            opened.pop().__exit__(None, None, None)
+
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        return t
+
+
+NO_STAGES = Stages(None)
+
+
+def busy_ms(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals (ms in, ms
+    out): the time some operation ran, counting overlapping streams
+    once."""
+    busy, cur = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > cur:
+            busy += e - max(s, cur)
+            cur = e
+    return busy
 
 
 def _timed_ms(run) -> float:
@@ -102,7 +174,9 @@ def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12,
     """Where ``run()``'s time goes, in ms per run: each stage's spans on the
     device (CUDA events, no profiler attached), then ``torch.profiler`` over
     ``reps`` more runs for the device time of the top kernels, the launch
-    count and the device's busy share of the unprofiled wall time.
+    count and the device's busy share of the unprofiled wall time (the
+    union of the device's operations, so that streams which overlap count
+    once).
     ``<name>_ms`` sums the device time of the kernels whose names contain
     each ``watch`` entry."""
     from torch.autograd import DeviceType
@@ -131,17 +205,21 @@ def profile_ms(run, device, stages: Stages, reps=5, warmup=2, top=12,
         t = getattr(e, "self_device_time_total", None)
         return (t if t is not None else e.self_cuda_time_total) / 1e3 / reps
 
+    own = f"{stages.prefix}."  # the device-side copies of the stage ranges
     kernels = sorted(((self_dev_ms(e), e.key, e.count // reps)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith(f"{stages.prefix}.")), reverse=True)
-    busy_ms = sum(k[0] for k in kernels)
+                      and not e.key.startswith(own)), reverse=True)
+    device_ms = busy_ms([(e.time_range.start / 1e3, e.time_range.end / 1e3)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not e.name.startswith(own)]) / reps
     wall_ms = float(np.median(walls))
     return {
         "wall_ms_median": wall_ms,
         "stages_ms_median": spans,
-        "device_kernel_ms_per_run": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
+        "device_kernel_ms_per_run": sum(k[0] for k in kernels),
+        "device_busy_share": device_ms / wall_ms,
         "kernel_launches_per_run": sum(k[2] for k in kernels),
         **{f"{w}_ms": sum(ms for ms, n, _ in kernels if w in n) for w in watch},
         "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
