@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only slice_spatial   # env, build and slice_spatial alone
+    python3 chip_smoke.py --only kernel_adam     # env, build and kernel_adam alone
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -143,6 +144,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    port's CPU run from the same weights, rays and draws, rgb -> instance
    -> rgb: losses 1e-5, every gradient 1e-5 of its max (the dense grid's,
    rounded to bf16 by design, to one bf16 ulp), params 1e-5.
+13c1. ``kernel_adam``: kernel B7 (``adam_cuda.adam_step``, one Adam launch
+   for every leaf) against ``adam_update_plain`` on the card, p, mu and nu
+   bit for bit, at the benchmark's field and B = 32 fleet configurations
+   (``benchmark/configs``): one ``train_step`` of each trainer launches B7
+   once; a real rgb and instance step on the trainer's own gradients (the
+   fleet's MLP weight gradients transposed views, read so by B7); random
+   states in the three modes (every leaf a gradient, the instance head
+   without one, the instance stage's frozen field) at counts 1, 2 and 1000.
+   Times B7 on the rgb stage's modes (``ms``, ``device_ms``, ``host_ms``)
+   beside its bound (28 bytes an entry with a gradient, 24 without, 16
+   frozen), the plain version and ``torch.optim.Adam(fused=True)`` (the
+   library yardstick, every leaf given a gradient). Alone: ``python3
+   chip_smoke.py --only kernel_adam``.
 13d. ``project_masks``: a 96^3 voxel instance grid and alpha grid projected
    into 8 views at 128^2 on the card and on the CPU: the files equal.
 13e. ``slice_dist`` (main path of slice 7a): training over every visible
@@ -224,7 +238,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``launches_fleet``), in the fleet split over the ranks
    (``launches_fleet_dist``) and in the ray-sharded field step
    (``launches_field_sharded``, one a rank), and the cases of the fleet
-   step and the tpu_fast CLI step (``fleet``, ``field_cli_fast``).
+   step and the tpu_fast CLI step (``fleet``, ``field_cli_fast``);
+   B7's its launches in ``slice_field``'s and ``slice_fleet``'s rgb steps
+   (one a step) and its timings at the two benchmark configurations
+   (``field_hash``, ``fleet_hash``).
 
 Before each main path every launch count is set to 0 and it is read just
 after; each path must have launched its kernel. Before the last line the
@@ -353,11 +370,12 @@ def random_sorted_boxes(rng, shape, size, p_valid=0.9):
 
 
 def _counted():
-    from instance_nerf_tpu_torch.kernels import coarse_occ_cuda, nms_cuda, scatter_cuda
+    from instance_nerf_tpu_torch.kernels import adam_cuda, coarse_occ_cuda, nms_cuda, scatter_cuda
 
+    # each has a ``launches`` count (B7's is its module's)
     return {"nms_boxes": nms_cuda.nms_boxes, "nms_sweep": nms_cuda.nms_sweep,
             "scatter_add": scatter_cuda.scatter_add,
-            "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup}
+            "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup, "adam": adam_cuda}
 
 
 def lap(parts: dict, name: str, since: float) -> float:
@@ -1663,9 +1681,8 @@ def train_and_check(cfg, label, rgb_steps, inst_steps, bench_reps):
     torch.cuda.synchronize()
     rgb_s = time.perf_counter() - t0
     launches = read_launches()
-    if launches["scatter_add"] != rgb_steps:
-        raise AssertionError(f"{label}: B3 launched {launches['scatter_add']} times in "
-                             f"{rgb_steps} rgb steps")
+    if launches["scatter_add"] != rgb_steps or launches["adam"] != rgb_steps:
+        raise AssertionError(f"{label}: B3 / B7 launched {launches} in {rgb_steps} rgb steps")
 
     # one step's table gradient, kernel against the plain scatter-add
     o, d, rgb, inst = trainer._batch(scene, torch.as_tensor(scene.poses, device="cuda"))
@@ -1687,6 +1704,9 @@ def train_and_check(cfg, label, rgb_steps, inst_steps, bench_reps):
     m_inst = trainer.train(scene, inst_steps, stage="instance", log_every=0)
     torch.cuda.synchronize()
     inst_launches = read_launches()
+    if inst_launches["adam"] != inst_steps:
+        raise AssertionError(f"{label}: B7 launched {inst_launches} in {inst_steps} instance "
+                             f"steps")
     moved = sorted(k for k, v in trainer.params.items() if not torch.equal(v, before[k]))
     if not moved or any(not k.startswith("inst_") for k in moved):
         raise AssertionError(f"{label}: the instance stage moved {moved}")
@@ -2253,7 +2273,8 @@ def phase_slice_fleet(work, smi):
     out["train_rgb_s"] = time.perf_counter() - t1
     out["launches_rgb"] = read_launches()
     out["peak_mem_bytes_train"] = int(torch.cuda.max_memory_allocated())
-    if out["launches_rgb"]["scatter_add"] != FLEET_STEPS["rgb"]:
+    if out["launches_rgb"]["scatter_add"] != FLEET_STEPS["rgb"] or \
+            out["launches_rgb"]["adam"] != FLEET_STEPS["rgb"]:
         raise AssertionError(f"slice_fleet: B3 launched {out['launches_rgb']} in "
                              f"{FLEET_STEPS['rgb']} fleet steps")
     zero_launches()
@@ -2373,6 +2394,261 @@ def phase_small_reference_fleet():
     emit(report)
     if loss_err > 1e-5 or grad_err > 1e-5 or dense_ulps > 1.0 or off > 1e-3 * total:
         raise AssertionError(f"f32 card fleet disagrees with the CPU run: {report}")
+
+
+ADAM_COUNTS = (1, 2, 1000)
+# the three modes: every leaf a gradient; the instance head without one
+# (the rgb stage); the instance stage (the rest of the field frozen)
+ADAM_CASES = {"gradient": "rgb", "no_gradient": "rgb", "frozen": "instance"}
+ADAM_CONFIGS = ("field_hash", "fleet_hash")  # the benchmark's configurations
+
+
+def _bench_ngp_config(name):
+    """The program's ``NGPConfig`` of the benchmark's configuration file
+    ``benchmark/configs/<name>.json`` (its fields), and the file's dict."""
+    import dataclasses
+
+    from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs", f"{name}.json")) as f:
+        raw = json.load(f)
+    fields = {f.name for f in dataclasses.fields(NGPConfig)}
+    return NGPConfig(**{k: v for k, v in raw.items() if k in fields}), raw
+
+
+def _adam_inputs(model, case, count, gen):
+    """Random parameters, moments and gradients on the card for ``model``'s
+    leaves: gradients normal at scales 1e-16 to 1e-3 (near Adam's eps and
+    far above it), 30% exactly 0; none for the instance head in the
+    ``no_gradient`` case; a fleet's stacked weights' gradients transposed
+    views, as autograd hands them over. Returns the Adam state (count
+    ``count - 1``, so that the step takes ``count``) and the gradients."""
+    import torch
+
+    st, grads = {"count": count - 1, "mu": {}, "nu": {}}, {}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            dev = p.device
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.05)
+            st["mu"][n] = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+            st["nu"][n] = (torch.randn(p.shape, generator=gen, device=dev) * 1e-3) ** 2
+            if case == "no_gradient" and n.startswith("inst_"):
+                grads[n] = None
+                continue
+            stacked = n.endswith(".weight") and p.dim() == 3  # a fleet's weight
+            shape = (*p.shape[:-2], p.shape[-1], p.shape[-2]) if stacked else p.shape
+            g = torch.randn(shape, generator=gen, device=dev)
+            g *= torch.pow(10.0, torch.randint(-16, -2, shape, generator=gen, device=dev)
+                           .float())
+            g *= torch.rand(shape, generator=gen, device=dev) >= 0.3
+            grads[n] = g.transpose(-1, -2) if stacked else g
+    return st, grads
+
+
+def _state_mismatches(model_a, st_a, model_b, st_b) -> dict:
+    """Entries of p, mu and nu that differ between two models' states (bit
+    patterns compared, so a -0.0 against a 0.0 counts)."""
+    import torch
+
+    out, params_b = {}, dict(model_b.named_parameters())
+    for n, p in model_a.named_parameters():
+        q = params_b[n]
+        pairs = (("p", p, q), ("mu", st_a["mu"][n], st_b["mu"][n]),
+                 ("nu", st_a["nu"][n], st_b["nu"][n]))
+        for what, a, b in pairs:
+            k = int((a.detach().view(torch.int32) != b.detach().view(torch.int32)).sum())
+            if k:
+                out[f"{what}/{n}"] = k
+    return out
+
+
+def _copy_state(dst_model, dst_st, src_model, src_st):
+    import torch
+
+    with torch.no_grad():
+        for (n, d), s in zip(dst_model.named_parameters(), src_model.parameters()):
+            d.copy_(s)
+            dst_st["mu"][n].copy_(src_st["mu"][n])
+            dst_st["nu"][n].copy_(src_st["nu"][n])
+    dst_st["count"] = src_st["count"]
+
+
+def adam_bound_ms(model, stage, grads) -> float:
+    """B7's least time for one step: each leaf's bytes once at 3.35 TB/s,
+    28 an entry with a gradient (p, g, mu, nu read, p, mu, nu written), 24
+    without one, 16 frozen (p neither read nor written)."""
+    from instance_nerf_tpu_torch.models.fast_encode import is_instance_param
+
+    total = 0
+    for n, p in model.named_parameters():
+        frozen = stage == "instance" and not is_instance_param(n)
+        total += p.numel() * (16 if frozen else 24 if grads.get(n) is None else 28)
+    return total / PEAK_BYTES_PER_S * 1e3
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host ms of a call of ``fn`` that only enqueues work, over
+    ``reps`` calls made before the device is waited for (few enough that
+    the launch queue does not fill)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def _device_total_ms(fn, reps: int) -> dict:
+    """All device activity of ``reps`` calls of ``fn`` per call
+    (``torch.profiler``), for a library call that launches a number of
+    kernels of its own choosing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("device_total_calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min((e.time_range.start for e in events if e.name == "device_total_calls"),
+             default=float("-inf"))
+    # the profiler's annotations of host ranges on the device's timeline
+    # (``Optimizer.step#Adam.step``) span the kernels: left out
+    us = [e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA
+          and e.time_range.start >= t0 and not getattr(e, "is_user_annotation", False)
+          and e.name != "device_total_calls"]
+    return {"ms": sum(us) / reps / 1e3 if us else None, "activities": len(us) / reps}
+
+
+def phase_kernel_adam(smi):
+    """Kernel B7 (``adam_cuda.adam_step``) against ``adam_update_plain`` on
+    the card, bit for bit on p, mu and nu, at the benchmark's field and B =
+    32 fleet shapes: the three modes at counts 1, 2 and 1000 on random
+    states, then one real step of each trainer (its own gradients); the
+    trainers' ``train_step`` launches B7 exactly once. Times B7 (``ms``,
+    ``device_ms``) beside its bound, the plain version and
+    ``torch.optim.Adam(fused=True)`` (the library yardstick; the port never
+    calls it) on each configuration's leaves in the rgb stage, and the host
+    ms a call of B7's and of the plain version's (``host_ms``)."""
+    import copy
+
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.kernels import adam_cuda
+    from instance_nerf_tpu_torch.train import ngp_trainer as TT
+    from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
+
+    report = {"phase": "kernel_adam", "nvidia_smi": smi, "configs": {}}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name in ADAM_CONFIGS:
+        cfg, raw = _bench_ngp_config(name)
+        b = raw.get("n_scenes")
+        rng = np.random.default_rng(0)
+        if b is None:
+            scene, _ = make_synthetic_nerf_scene(rng, device="cuda", **FIELD_SCENE)
+            tr = TT.InstanceFieldTrainer(cfg, seed=0, device="cuda")
+            poses = torch.as_tensor(scene.poses, device="cuda")
+            batch = lambda: tr._batch(scene, poses)  # noqa: E731
+        else:
+            scenes = [make_synthetic_nerf_scene(rng, device="cuda", **FLEET_SCENE)[0]
+                      for _ in range(b)]
+            tr = MultiSceneFieldTrainer(scenes, cfg, seed=0, device="cuda")
+            batch = tr._batch
+        out = {"B": b, "leaves": {n: list(p.shape) for n, p in tr.model.named_parameters()},
+               "entries": sum(p.numel() for p in tr.model.parameters())}
+        # one step of the trainer's main path: one launch
+        o, d, rgb, inst = batch()
+        zero_launches()
+        tr.train_step("rgb", o, d, rgb, inst)
+        torch.cuda.synchronize()
+        out["launches_train_step"] = read_launches()
+        if out["launches_train_step"]["adam"] != 1:
+            raise AssertionError(f"kernel_adam {name}: one train step launched B7 "
+                                 f"{out['launches_train_step']['adam']} times")
+        # one real step: the trainer's own gradients through B7 and the plain version
+        model = tr.model
+        twin, twin_st = copy.deepcopy(model), copy.deepcopy(tr.opt_state)
+        cases = {}
+        for stage in ("rgb", "instance"):
+            _, grads = tr.loss_and_grads(stage, *batch())
+            _copy_state(twin, twin_st, model, tr.opt_state)
+            before = adam_cuda.launches
+            TT.adam_update(model, grads, tr.opt_state, stage, cfg.lr)
+            adam_cuda.adam_update_plain(twin, grads, twin_st, stage, cfg.lr)
+            torch.cuda.synchronize()
+            cases[f"real_{stage}"] = {
+                "count": tr.opt_state["count"], "launches": adam_cuda.launches - before,
+                "non_contiguous_grads": sorted(k for k, g in grads.items()
+                                               if g is not None and not g.is_contiguous()),
+                "mismatches": _state_mismatches(model, tr.opt_state, twin, twin_st)}
+            del grads
+        # random states: the three modes at counts 1, 2, 1000
+        for case, stage in ADAM_CASES.items():
+            for count in ADAM_COUNTS:
+                st, grads = _adam_inputs(model, case, count, gen)
+                tr.opt_state = st
+                _copy_state(twin, twin_st, model, st)
+                before = adam_cuda.launches
+                TT.adam_update(model, grads, st, stage, cfg.lr)
+                adam_cuda.adam_update_plain(twin, grads, twin_st, stage, cfg.lr)
+                torch.cuda.synchronize()
+                cases[f"{case}_{count}"] = {"launches": adam_cuda.launches - before,
+                                            "mismatches": _state_mismatches(model, st, twin,
+                                                                            twin_st)}
+                del grads
+        out["cases"] = cases
+        bad = {k: v for k, v in cases.items() if v["mismatches"] or v["launches"] != 1}
+        if bad:
+            emit({**report, "failed": name, "cases": cases})
+            raise AssertionError(f"kernel_adam {name}: B7 differs from the plain version: {bad}")
+
+        # timing on the rgb stage's modes (the instance head without gradient)
+        st, grads = _adam_inputs(model, "no_gradient", 10, gen)
+        tr.opt_state = st
+        _copy_state(twin, twin_st, model, st)
+        names = [n for n, _ in model.named_parameters()]
+
+        def kernel():
+            TT.adam_update(model, grads, st, "rgb", cfg.lr)
+
+        def plain():
+            adam_cuda.adam_update_plain(twin, grads, twin_st, "rgb", cfg.lr)
+
+        timing = {"ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+                  "host_ms": host_ms(kernel, reps=20), "plain_host_ms": host_ms(plain, reps=3),
+                  "bound_ms": adam_bound_ms(model, "rgb", grads), "bound_by": "bytes"}
+        profiled(timing, "device_ms", kernel, 10, "field_adam_kernel", "field_adam_kernel")
+        profiled(timing, "call_device_ms", kernel, 10, "field_adam_kernel")
+        del twin, twin_st
+        # the library: every leaf given a gradient (28 bytes an entry)
+        for p, n in zip(model.parameters(), names):
+            g = grads[n]
+            p.grad = torch.zeros_like(p) if g is None else g.contiguous()
+        lib = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                               betas=(adam_cuda.ADAM_B1, adam_cuda.ADAM_B2),
+                               eps=adam_cuda.ADAM_EPS, fused=True)
+        timing["library_ms"] = cuda_ms(lib.step, reps=10)
+        lib_dev = _device_total_ms(lib.step, reps=5)
+        timing["library_device_ms"] = lib_dev["ms"]
+        timing["library_activities"] = lib_dev["activities"]
+        timing["library_bound_ms"] = sum(p.numel() for p in model.parameters()) * 28 / \
+            PEAK_BYTES_PER_S * 1e3
+        out["timing"] = timing
+        report["configs"][name] = out
+        del lib, grads, st, model, tr, batch
+        release()
+    emit(report)
+    return report
 
 
 def phase_project_masks(work):
@@ -3935,6 +4211,7 @@ def main():
         field_cli = phase_field_cli(work)
         fleet, fleet_case = phase_slice_fleet(work, smi)
         phase_small_reference_fleet()
+        adam = phase_kernel_adam(smi)
         phase_project_masks(work)
         dist = phase_slice_dist(work, smi)
         sp_out = prepare_slice_spatial(work)
@@ -4024,6 +4301,14 @@ def main():
         "library_ms": occ_t["library_ms"], "library_device_ms": occ_t["library_device_ms"],
         "renderer_ms": occ_t["renderer_ms"],
         "n": occ_t["n"], "coarse_res": occ_t["coarse_res"],
+    }, {
+        "name": "adam", "route": "cuda", "source": "instance_nerf_tpu_torch/csrc/adam.cu",
+        "replaces": None, "launches": launches_field["adam"],
+        "launches_fleet": fleet["launches_rgb"]["adam"],
+        "launches_train_step": {k: v["launches_train_step"]["adam"]
+                                for k, v in adam["configs"].items()},
+        "max_abs_err": 0.0, **{k: {**v["timing"], "entries": v["entries"]}
+                               for k, v in adam["configs"].items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4049,10 +4334,28 @@ def main_spatial():
                                  "count": torch.cuda.device_count()}})
 
 
+def main_kernel_adam():
+    """``--only kernel_adam``: the environment, the kernels' build and
+    ``kernel_adam``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    smi = phase_env()
+    phase_build()
+    phase_kernel_adam(smi)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
         dist_child(sys.argv[2:])
     elif sys.argv[1:] == ["--only", "slice_spatial"]:
         main_spatial()
+    elif sys.argv[1:] == ["--only", "kernel_adam"]:
+        main_kernel_adam()
     else:
         main()

@@ -13,7 +13,9 @@ parameter that received no gradient sees zeros (its moments decay, and
 stale momentum still moves it), and in the instance stage the gradients and
 the updates outside ``inst_*`` are masked (frozen NeRF) while the moments
 still decay and the step count advances. ``torch.optim.Adam`` skips
-parameters without a gradient, which is another optimizer.
+parameters without a gradient, which is another optimizer. On the card one
+launch of kernel B7 (``kernels/adam_cuda.py``) updates every leaf, equal bit
+for bit to its plain version, which runs on the CPU.
 
 The JAX package scans ``steps_per_call`` steps per dispatch; here a chunk
 draws its ray batches first, as the scan does, then runs its steps eagerly.
@@ -33,7 +35,7 @@ import torch
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import ngp_params_from_jax, unflatten_npz
 from instance_nerf_tpu_torch.data.nerf_dataset import NeRFScene
-from instance_nerf_tpu_torch.kernels import scatter_cuda
+from instance_nerf_tpu_torch.kernels import adam_cuda, scatter_cuda
 from instance_nerf_tpu_torch.models.fast_encode import InstanceNGPFast, is_instance_param
 from instance_nerf_tpu_torch.models.hashgrid import InstanceNGP, density_activation
 from instance_nerf_tpu_torch.models.render import (
@@ -222,9 +224,6 @@ def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> di
     return losses
 
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
-
-
 def adam_init(model: torch.nn.Module) -> dict:
     zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     return {"count": 0, "mu": zeros, "nu": {n: torch.zeros_like(p) for n, p in zeros.items()}}
@@ -234,25 +233,18 @@ def adam_init(model: torch.nn.Module) -> dict:
 def adam_update(model: torch.nn.Module, grads: dict, st: dict, stage: str, lr: float) -> None:
     """One optax-style Adam step over every parameter of ``model`` in place
     (see the module docstring for the masking rules); a fleet's stacked
-    parameters update elementwise with the one shared count."""
-    b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
+    parameters update elementwise with the one shared count. CUDA
+    parameters go through kernel B7 (``adam_cuda.adam_step``, one launch for
+    every leaf), CPU parameters through ``adam_cuda.adam_update_plain``."""
+    names, params = zip(*model.named_parameters())
+    if params[0].device.type == "cpu":
+        adam_cuda.adam_update_plain(model, grads, st, stage, lr)
+        return
     st["count"] += 1
-    # optax's bias corrections 1 - b^count, in f32
-    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(st["count"]))
-    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(st["count"]))
-    for name, p in model.named_parameters():
-        frozen = stage == "instance" and not is_instance_param(name)
-        g = None if frozen else grads.get(name)
-        mu, nu = st["mu"][name], st["nu"][name]
-        mu.mul_(b1)
-        nu.mul_(b2)
-        if g is not None:
-            mu.add_(g * (1 - b1))
-            nu.add_(g * g * (1 - b2))
-        if frozen:
-            continue
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        p.add_(upd.mul_(-lr))
+    frozen = [stage == "instance" and not is_instance_param(n) for n in names]
+    adam_cuda.adam_step(params, [None if f else grads.get(n) for n, f in zip(names, frozen)],
+                        [st["mu"][n] for n in names], [st["nu"][n] for n in names], frozen,
+                        st["count"], lr)
 
 
 SAMPLING_FIELDS = {"k_buckets", "k_occupied", "n_samples", "ray_jitter", "occ_coarse_res",
