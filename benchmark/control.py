@@ -8,27 +8,42 @@ configuration states them, then in the program's place:
 
 * ``control``: the reference one precision below the configuration's
   (``control_precision`` in the configuration file: TF32 for f32, fp8 for
-  bf16);
-* ``half_batch``: the reference with half of each step's batch left out,
-  the loss the mean over the rest;
+  bf16), given to the reference as ``precision=``;
+* each fault of the cell's entry's ``REFERENCE_FAULTS``, given to the
+  reference as ``fault=`` (the field entries': ``half_batch``, half of each
+  step's batch left out, the loss the mean over the rest);
 
-and prints each one's numbers (``harness/compare.py``) against the
-reference. Their ``ray_gap`` is 0: the reference in the program's place
-trains on the benchmark's rays and makes none of its own. With
-``--program`` it also runs the harness (``run.py:run``, a window of one
-call) with each fault of ``FAULTS`` planted in the program and prints
-what it compared. A state left unchanged reads 1 on ``change_gap`` by
-construction. The benchmark's own runs never run this.
+and prints each one's numbers (``harness/compare.py:numbers``) against the
+reference. Where the cell's limits list ``ray_gap``, it reads 0 there: the
+reference in the program's place trains on the benchmark's rays and makes
+none of its own. With ``--program`` it also runs the harness
+(``run.py:run``, a window of one call) with each of the entry's ``FAULTS``
+planted in the program (the entry's ``planted(fault)``) and prints what it
+compared. A state left unchanged reads 1 on ``change_gap`` by
+construction. A cell whose entry names no faults is refused (exit code 2).
+The benchmark's own runs never run this.
 """
 import argparse
-import contextlib
 import importlib
 import json
 import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAULTS = ("state_unchanged", "half_batch", "altered_rays")
+
+
+def faults_of(cell):
+    """The cell's entry, which names the faults planted in its cells:
+    ``REFERENCE_FAULTS``, and ``FAULTS`` with ``planted(fault)``, a context
+    manager that plants one in the program; ``ValueError`` where it names
+    none."""
+    name = cell.workload["entry"]
+    entry = importlib.import_module(f"benchmark.entries.{name}")
+    missing = [a for a in ("REFERENCE_FAULTS", "FAULTS", "planted") if not hasattr(entry, a)]
+    if missing:
+        raise ValueError(f"entry {name!r} names no faults to plant (it has no "
+                         f"{', '.join(missing)})")
+    return entry
 
 
 def readings_of(cell, seed: int, device) -> dict:
@@ -36,75 +51,31 @@ def readings_of(cell, seed: int, device) -> dict:
     against the reference at ``seed``."""
     from benchmark.harness import compare
 
+    entry = faults_of(cell)
     ref_mod = importlib.import_module(f"benchmark.reference.{cell.config_name}")
+    own = getattr(ref_mod, "gaps", None)
     kw = dict(cfg=cell.config, traffic=cell.traffic, seed=seed, device=device)
     ref = ref_mod.readings(**kw)
+    judged = {"ray_gap": 0.0} if "ray_gap" in cell.workload["limits"] else {}
+    kinds = {"control": {"precision": cell.config["control_precision"]},
+             **{fault: {"fault": fault} for fault in entry.REFERENCE_FAULTS}}
     out = {"seed": seed}
-    for kind, extra in (("control", {"precision": cell.config["control_precision"]}),
-                        ("half_batch", {"fault": "half_batch"})):
-        out[kind] = {**compare.gaps(ref_mod.readings(**kw, **extra), ref), "ray_gap": 0.0}
+    for kind, extra in kinds.items():
+        out[kind] = {**compare.numbers(ref_mod.readings(**kw, **extra), ref, own), **judged}
     return out
 
 
-def _halved(method):
-    def step(self, stage, o, d, rgb, inst, *args, jitter=None, **kwargs):
-        h = o.shape[-2] // 2
-        if jitter is not None:
-            jitter = jitter[..., :h, :]
-        return method(self, stage, o[..., :h, :], d[..., :h, :], rgb[..., :h, :],
-                      inst[..., :h], *args, jitter=jitter, **kwargs)
-
-    return step
-
-
-def _rolled(method):
-    def batch(self, *args, **kwargs):
-        o, d, rgb, inst = method(self, *args, **kwargs)
-        return o, d, rgb.roll(1, dims=-2), inst  # each ray given another's target
-
-    return batch
-
-
-@contextlib.contextmanager
-def planted(fault: str):
-    """``fault`` planted in the program while the block runs: a step that
-    leaves its state unchanged (no Adam update), half of each batch left
-    out (the loss the mean over the rest), or an answer altered where it is
-    produced (each ray's target taken from another ray of its batch, in the
-    trainers' ray data)."""
-    from instance_nerf_tpu_torch.train import multiscene, ngp_trainer
-
-    field, fleet = ngp_trainer.InstanceFieldTrainer, multiscene.MultiSceneFieldTrainer
-    if fault == "state_unchanged":
-        swaps = [(ngp_trainer, "adam_update", lambda *a, **k: None),
-                 (multiscene, "adam_update", lambda *a, **k: None)]
-    elif fault == "half_batch":
-        swaps = [(c, "train_step", _halved(c.train_step)) for c in (field, fleet)]
-    elif fault == "altered_rays":
-        swaps = [(field, "_batch", _rolled(field._batch)),
-                 (fleet, "_device_batch", _rolled(fleet._device_batch)),
-                 (fleet, "_batch", _rolled(fleet._batch))]
-    else:
-        raise ValueError(f"unknown fault {fault!r}")
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
-    try:
-        for obj, name, new in swaps:
-            setattr(obj, name, new)
-        yield
-    finally:
-        for obj, name, old in saved:
-            setattr(obj, name, old)
-
-
 def program_faults(cell, seed: int, device) -> dict:
-    """What the harness compares, with each of ``FAULTS`` planted in turn."""
+    """What the harness compares, with each of the entry's ``FAULTS``
+    planted in turn."""
     from argparse import Namespace
 
     from benchmark import run
 
+    entry = faults_of(cell)
     out = {"seed": seed}
-    for fault in FAULTS:
-        with planted(fault):
+    for fault in entry.FAULTS:
+        with entry.planted(fault):
             result = run.run(Namespace(workload=cell.name, seed=seed, seconds=0.001, trace=0),
                              cell, device_override=device)
         out[fault] = {k: v["value"] for k, v in result["compared"].items()}
@@ -124,6 +95,11 @@ def main(argv=None) -> int:
     from benchmark.harness import device, manifest
 
     cell = manifest.load_cell(args.workload)
+    try:
+        faults_of(cell)
+    except ValueError as e:
+        print(f"control: {e}", file=sys.stderr)
+        return 2
     try:
         device.require_cards(cell.chips)
     except device.NoCard as e:

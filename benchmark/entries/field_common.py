@@ -1,6 +1,6 @@
 """What the two field entries share: the program's configuration from the
-cell's configuration file, the feed of the first call, and the window's
-call.
+cell's configuration file, the feed of the first call, the window's call,
+and the faults ``control.py`` plants.
 
 The set-up builds the trainer once, loads the benchmark's weights and the
 start grid into it (``traffic/draws.py``), and drives it through its first
@@ -10,6 +10,7 @@ trainer then serves the window.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -18,6 +19,10 @@ from benchmark.reference import plain_field
 from benchmark.traffic import draws
 
 RECORDED_STEPS = 3
+# the faults control.py plants: in the reference's place (the reference's
+# ``fault=``), and in the program under a run of the harness (``planted``)
+REFERENCE_FAULTS = ("half_batch",)
+FAULTS = ("state_unchanged", "half_batch", "altered_rays")
 
 
 def ngp_config(cfg: dict):
@@ -109,6 +114,7 @@ class FieldSession:
     ``call()`` runs one window call."""
 
     work_unit = "rays"
+    step_span = "adam"  # the program's span that opens once a step
 
     def __init__(self, prefix: str, trainer, call, rays_per_step: int, inp: draws.Inputs,
                  n_scenes: int | None, initial: dict, read_grid):
@@ -135,3 +141,53 @@ class FieldSession:
     def close(self) -> None:
         """Drop the program's state (the call holds the trainer)."""
         self._call = None
+
+
+def _halved(method):
+    def step(self, stage, o, d, rgb, inst, *args, jitter=None, **kwargs):
+        h = o.shape[-2] // 2
+        if jitter is not None:
+            jitter = jitter[..., :h, :]
+        return method(self, stage, o[..., :h, :], d[..., :h, :], rgb[..., :h, :],
+                      inst[..., :h], *args, jitter=jitter, **kwargs)
+
+    return step
+
+
+def _rolled(method):
+    def batch(self, *args, **kwargs):
+        o, d, rgb, inst = method(self, *args, **kwargs)
+        return o, d, rgb.roll(1, dims=-2), inst  # each ray given another's target
+
+    return batch
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """``fault`` planted in the program while the block runs: a step that
+    leaves its state unchanged (no Adam update), half of each batch left
+    out (the loss the mean over the rest), or an answer altered where it is
+    produced (each ray's target taken from another ray of its batch, in the
+    trainers' ray data)."""
+    from instance_nerf_tpu_torch.train import multiscene, ngp_trainer
+
+    field, fleet = ngp_trainer.InstanceFieldTrainer, multiscene.MultiSceneFieldTrainer
+    if fault == "state_unchanged":
+        swaps = [(ngp_trainer, "adam_update", lambda *a, **k: None),
+                 (multiscene, "adam_update", lambda *a, **k: None)]
+    elif fault == "half_batch":
+        swaps = [(c, "train_step", _halved(c.train_step)) for c in (field, fleet)]
+    elif fault == "altered_rays":
+        swaps = [(field, "_batch", _rolled(field._batch)),
+                 (fleet, "_device_batch", _rolled(fleet._device_batch)),
+                 (fleet, "_batch", _rolled(fleet._batch))]
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    try:
+        for obj, name, new in swaps:
+            setattr(obj, name, new)
+        yield
+    finally:
+        for obj, name, old in saved:
+            setattr(obj, name, old)

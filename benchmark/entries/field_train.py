@@ -11,6 +11,8 @@ from the trainer's own streams, seeded with the seed.
 from __future__ import annotations
 
 from benchmark.entries.field_common import FieldSession, ngp_config
+# the faults control.py plants in this entry's cells
+from benchmark.entries.field_common import FAULTS, REFERENCE_FAULTS, planted  # noqa: F401
 from benchmark.reference import plain_field
 from benchmark.traffic import draws
 

@@ -7,8 +7,13 @@ mix; the harness finds:
   configuration as it is run;
 * ``benchmark/traffic/<traffic>.json``: the traffic mix's parameters;
 * ``benchmark/workloads/<cell>.json``: the entry the window drives
-  (``benchmark/entries/<entry>.py``) and the limits of the numbers that
-  decide ``correct``;
+  (``benchmark/entries/<entry>.py``) and ``limits``, the numbers that
+  decide ``correct``, each with its limit (``harness/compare.py:verdict``
+  judges the cell on these and on no other number; a file without them is
+  refused);
+* ``benchmark/reference/<config>.py``: the configuration's plain reference,
+  ``readings(...)`` and, where the configuration has numbers of its own,
+  ``gaps(prog, ref)``;
 * ``benchmark/metrics/<metric>.py``: the metric's reader; where there is
   no such file, the reader of its family, ``<family>.py``, the family being
   the name up to its first dot. Metrics of one quantity that differ only in
@@ -58,7 +63,8 @@ class Cell:
 
 def load_cell(name: str, root: str = ROOT) -> Cell:
     """The cell ``name`` of the manifest with its files; ``KeyError`` if the
-    manifest has no such cell."""
+    manifest has no such cell, ``ValueError`` if its workload file names no
+    limit."""
     man = load_manifest(root)
     cells = {w["name"]: w for w in man["workloads"]}
     if name not in cells:
@@ -66,10 +72,14 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     w = cells[name]
     conf = {c["name"]: c for c in man["configs"]}[w["config"]]
     bench = os.path.join(root, "benchmark")
+    workload = _json(os.path.join(bench, "workloads", f"{name}.json"))
+    if not workload.get("limits"):
+        raise ValueError(f"benchmark/workloads/{name}.json names no limits: a cell is judged "
+                         "on its limits alone")
     return Cell(name=name, chips=int(w["chips"]), config_name=w["config"],
                 config=_json(os.path.join(root, conf["file"])),
                 traffic=_json(os.path.join(bench, "traffic", f"{w['traffic']}.json")),
-                workload=_json(os.path.join(bench, "workloads", f"{name}.json")),
+                workload=workload,
                 end_to_end=[m for m in man["end_to_end"] if applies(m, name)],
                 per_layer=[m for m in man["per_layer"] if applies(m, name)])
 

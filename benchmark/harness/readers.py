@@ -7,15 +7,14 @@ from __future__ import annotations
 from benchmark.counts import peaks
 from benchmark.counts.scatter_add import bound_s, field_launch
 
-# the program's span that opens once a training step: the traced run
-# counts its steps by it
-STEP_SPAN = "adam"
-
 
 def steps_seen(run):
+    """The steps the trace holds, counted by the program's span that opens
+    once a step, ``<prefix>.<step_span>`` (the entry's session names it: a
+    field's ``adam``)."""
     if run.trace is None:
         return None
-    return run.trace["spans"].get(f"{run.prefix}.{STEP_SPAN}", (0.0, 0))[1] or None
+    return run.trace["spans"].get(f"{run.prefix}.{run.step_span}", (0.0, 0))[1] or None
 
 
 def span_ms_per_step(run, stage: str):

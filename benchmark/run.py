@@ -6,7 +6,9 @@ From the root of a checkout: set up (inputs and weights from the seed, the
 program's trainer built and driven through its first calls), measure for
 ``--seconds`` (whole calls of the entry; with ``--trace 1`` under
 ``torch.profiler``), free the program's state, compare what it computed
-with the plain reference, and print one JSON line as the last line of
+with the plain reference (``harness/compare.py:numbers``, with the
+configuration's own ``gaps`` where its reference has them), judge the
+numbers on the cell's limits, and print one JSON line as the last line of
 standard output: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
 ``device``, with ``--trace 1`` ``breakdown``, ``window`` (the window's
@@ -181,8 +183,9 @@ def run(args, cell, device_override=None) -> dict:
         busy, win = ranks.reduce([reduced["busy_s"], reduced["window_s"]], "sum")
         reduced.update(busy_s=busy / ranks.world, window_s=win / ranks.world)
     record = SimpleNamespace(
-        config=cell.config, traffic=cell.traffic, prefix=sess.prefix, work=work,
-        work_unit=sess.work_unit, window_s=window_s, setup_s=setup_s, calls=calls,
+        config=cell.config, traffic=cell.traffic, prefix=sess.prefix,
+        step_span=sess.step_span, work=work, work_unit=sess.work_unit, window_s=window_s,
+        setup_s=setup_s, calls=calls,
         steps=calls * sess.steps_per_call, flops_per_call=sess.flops_per_call,
         trace=reduced, window_peak_bytes=window_peak, peak_bytes=peak)
     readings = sess.readings() if ranks.rank == 0 else None
@@ -199,7 +202,7 @@ def run(args, cell, device_override=None) -> dict:
     t_ref = time.perf_counter()
     ref = ref_mod.readings(cell.config, cell.traffic, args.seed, dev, seen=seen)
     print(f"benchmark: the reference took {time.perf_counter() - t_ref:.1f} s", file=sys.stderr)
-    numbers = compare.gaps(readings, ref)
+    numbers = compare.numbers(readings, ref, getattr(ref_mod, "gaps", None))
     correct, rows = compare.verdict(numbers, cell.workload["limits"])
     specs = cell.per_layer if args.trace else cell.end_to_end
     if not on_card:  # a CPU dry run writes no number under a device metric's name
@@ -271,7 +274,7 @@ def main(argv=None) -> int:
 
     try:
         cell = manifest.load_cell(args.workload)
-    except (KeyError, OSError) as e:
+    except (KeyError, ValueError, OSError) as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 2
     if not math.isfinite(args.seconds) or args.seconds <= 0:

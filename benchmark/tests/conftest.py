@@ -34,6 +34,10 @@ TINY = {
 }
 
 
+# the numbers a field cell is judged on, in its limits' order
+FIELD_NUMBERS = ("loss_gap", "grad_gap", "change_gap", "occ_gap", "ray_gap")
+
+
 @pytest.fixture
 def tiny_cell():
     """``tiny_cell(name)``: the manifest's cell with ``TINY``'s sizes."""

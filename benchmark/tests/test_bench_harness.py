@@ -16,7 +16,7 @@ import pytest
 from benchmark import run
 from benchmark.harness import compare, trace
 from benchmark.harness.manifest import ROOT
-from benchmark.tests.conftest import TINY
+from benchmark.tests.conftest import FIELD_NUMBERS, TINY
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 SEED = 2 ** 31 + 12345  # past 32 signed bits: seeds may be that large
@@ -56,7 +56,8 @@ def test_dry_run_line(tiny_cell, name, traced):
     for m in specs:
         if m["source"] in ("device_trace", "program_counter"):
             assert m["name"] not in line["metrics"]
-    assert set(line["compared"]) == set(compare.NUMBERS)
+    # judged on its limits, in their order, and on nothing else
+    assert list(line["compared"]) == list(cell.workload["limits"])
 
 
 def test_no_card_no_result(capsys):
@@ -211,8 +212,13 @@ def test_trace_reduction():
     assert gaps["bench.window"] == pytest.approx(100e-9 + 440e-9)
     from benchmark.harness import readers
 
-    rec = SimpleNamespace(trace=red, prefix="field")
+    rec = SimpleNamespace(trace=red, prefix="field", step_span="adam")
     assert readers.steps_seen(rec) == 2
+    # the steps are counted by the span the session names, under its prefix
+    assert readers.steps_seen(SimpleNamespace(trace=red, prefix="field",
+                                              step_span="rays")) == 1
+    assert readers.steps_seen(SimpleNamespace(trace=red, prefix="fleet",
+                                              step_span="adam")) is None
     assert readers.span_ms_per_step(rec, "rays") == pytest.approx(100e-9 * 1e3 / 2)
     assert readers.launch_time(rec, ["scatter_add"]) == (pytest.approx(50e-9), 1)
 
@@ -234,11 +240,45 @@ def test_compare_numbers():
     limits = {"loss_gap": 0.2, "grad_gap": 1e-6, "change_gap": 1e-6, "occ_gap": 0.1,
               "ray_gap": 1e-6}
     ok, rows = compare.verdict(g, limits)
-    assert ok and [r[0] for r in rows] == list(compare.NUMBERS)
+    assert ok and [r[0] for r in rows] == list(limits) == list(FIELD_NUMBERS)
     assert not compare.verdict({**g, "loss_gap": float("nan")}, limits)[0]
     assert not compare.verdict({k: v for k, v in g.items() if k != "ray_gap"}, limits)[0]
+    # a number that no limit judges fails, and is shown without a limit
+    ok, rows = compare.verdict(g, {k: v for k, v in limits.items() if k != "occ_gap"})
+    assert not ok and rows[-1] == ["occ_gap", g["occ_gap"], None]
+    assert not compare.verdict({}, {})[0]
+    # the limits' order is the rows' order
+    rev = dict(reversed(limits.items()))
+    assert [r[0] for r in compare.verdict(g, rev)[1]] == list(rev)
     # a cell without a density (0, or below it) is no density: it fails
     assert compare.gaps({**prog, "grid": [[950.0, 0.0, 2.0]]}, ref)["occ_gap"] == np.inf
+    # a kind neither side gives gives no number; one side's alone is refused
+    no_grid = {k: v for k, v in ref.items() if k != "grid"}
+    assert "occ_gap" not in compare.gaps({k: v for k, v in prog.items() if k != "grid"},
+                                         no_grid)
+    with pytest.raises(ValueError, match="differ"):
+        compare.gaps(prog, no_grid)
+    with pytest.raises(ValueError, match="differ"):
+        compare.gaps({k: v for k, v in prog.items() if k != "loss"}, ref)
+    with pytest.raises(ValueError, match="needs the reference's grad"):
+        compare.gaps({"change": prog["change"]}, {"change": ref["change"]})
+    # a configuration's own number joins them; one the harness gives too is refused
+    own = compare.numbers(prog, ref, lambda p, r: {"own_gap": 0.5})
+    assert own == {**g, "own_gap": 0.5}
+    with pytest.raises(ValueError, match="twice"):
+        compare.numbers(prog, ref, lambda p, r: {"loss_gap": 0.0})
+
+
+def test_field_reading_without_grid_refused(tiny_cell, monkeypatch):
+    """A field cell whose program side gives no occupancy grid is refused,
+    not judged on the numbers that are left."""
+    from benchmark.entries import field_common
+
+    inner = field_common.FieldSession.readings
+    monkeypatch.setattr(field_common.FieldSession, "readings",
+                        lambda self: {k: v for k, v in inner(self).items() if k != "grid"})
+    with pytest.raises(ValueError, match="only the reference gives 'grid'"):
+        _dry_run(tiny_cell("field_hash_rgb"))
 
 
 def test_ray_gap_recovers_views_and_pixels():

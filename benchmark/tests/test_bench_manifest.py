@@ -7,7 +7,8 @@ import re
 
 import pytest
 
-from benchmark.harness import compare, manifest
+from benchmark.harness import manifest
+from benchmark.tests.conftest import FIELD_NUMBERS
 
 ROOT = manifest.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -77,7 +78,12 @@ def test_cell_files(cell):
     c = manifest.load_cell(cell)
     assert os.path.exists(os.path.join(ROOT, "benchmark", "entries",
                                        f"{c.workload['entry']}.py"))
-    assert set(c.workload["limits"]) == set(compare.NUMBERS)
+    # the numbers the cell is judged on: its limits, a non-empty set; that
+    # they are the numbers its first call gives is the dry run's check
+    # (test_bench_harness.py)
+    assert c.workload["limits"] and all(NAME.match(k) for k in c.workload["limits"])
+    if c.workload["entry"] in ("field_train", "fleet_train"):
+        assert tuple(c.workload["limits"]) == FIELD_NUMBERS
     assert all(0 < float(v) < 1 for v in c.workload["limits"].values())
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
@@ -107,3 +113,24 @@ def test_chips_and_check_length():
     # a full check of 24 cells: 2 + 14 x 24 runs of run_seconds + 60, 2 x 90
     # seconds a cell to compile, 1200 spare
     assert (2 + 14 * 24) * (MAN["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
+
+
+def test_cell_without_limits_refused(tmp_path):
+    """A workload file that names no limits is refused when the cell is
+    loaded: a cell is judged on its limits alone."""
+    cell = CELLS[0]
+    w = {x["name"]: x for x in MAN["workloads"]}[cell]
+    conf = {c["name"]: c for c in MAN["configs"]}[w["config"]]
+    for rel in ("BENCHMARK.json", conf["file"], f"benchmark/traffic/{w['traffic']}.json"):
+        dst = tmp_path / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(open(os.path.join(ROOT, rel), "rb").read())
+    body = manifest.load_cell(cell).workload
+    wl = tmp_path / "benchmark" / "workloads" / f"{cell}.json"
+    wl.parent.mkdir(parents=True)
+    for bare in ({"entry": body["entry"]}, {"entry": body["entry"], "limits": {}}):
+        wl.write_text(json.dumps(bare))
+        with pytest.raises(ValueError, match="names no limits"):
+            manifest.load_cell(cell, root=str(tmp_path))
+    wl.write_text(json.dumps(body))
+    assert manifest.load_cell(cell, root=str(tmp_path)).workload == body

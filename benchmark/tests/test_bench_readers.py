@@ -36,7 +36,7 @@ WAITS = [20, 30, 150, 10, 40, 300, 500]
 
 def _run(events=EVENTS, prefix="field"):
     red = trace.reduce_events(events, (f"{prefix}.", "bench."))
-    return SimpleNamespace(trace=red, prefix=prefix)
+    return SimpleNamespace(trace=red, prefix=prefix, step_span="adam")
 
 
 @pytest.mark.parametrize("name, want", [
@@ -75,7 +75,8 @@ def test_reader_without_its_span(name):
     and returns None, and the harness leaves the metric out."""
     left = [e for e in EVENTS if e.name() != f"field.{SPAN[name]}"]
     assert run.load_reader(name)(_run(left)) is None
-    assert run.load_reader(name)(SimpleNamespace(trace=None, prefix="field")) is None
+    assert run.load_reader(name)(SimpleNamespace(trace=None, prefix="field",
+                                                 step_span="adam")) is None
 
 
 def test_every_new_metric_has_its_reader():
