@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only slice_spatial   # env, build and slice_spatial alone
     python3 chip_smoke.py --only kernel_adam     # env, build and kernel_adam alone
+    python3 chip_smoke.py --only kernel_hash_encode   # env, build and kernel_hash_encode
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -157,6 +158,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    frozen), the plain version and ``torch.optim.Adam(fused=True)`` (the
    library yardstick, every leaf given a gradient). Alone: ``python3
    chip_smoke.py --only kernel_adam``.
+13c2. ``kernel_hash_encode``: kernel B8 (``hash_encode_cuda.hash_encode``,
+   the hash encoding in one launch, its backward in a second) against the
+   plain chain (``hash_encode_plain``) on the card at the benchmark's field
+   and B = 32 fleet configurations, at a step's points and at the refresh's
+   (no gradient): the backward's flat rows and ``grad * w`` bit for bit,
+   the features bit for bit (the kernel sums in the order of PyTorch's CUDA
+   sum; held within 7 f32 eps of the products' magnitudes, the bound of
+   either order), the table gradient through B3 within 1e-5 of its max;
+   one forward launch an encoding and one backward launch a step, and a
+   trainer's call of 16 steps launching 24 (field) and 17 (fleet) forwards
+   and 16 backwards. Times both kernels (``ms``, ``device_ms``) beside
+   their bound (bytes) and the plain chain. Alone: ``python3 chip_smoke.py
+   --only kernel_hash_encode``.
 13d. ``project_masks``: a 96^3 voxel instance grid and alpha grid projected
    into 8 views at 128^2 on the card and on the CPU: the files equal.
 13e. ``slice_dist`` (main path of slice 7a): training over every visible
@@ -370,12 +384,19 @@ def random_sorted_boxes(rng, shape, size, p_valid=0.9):
 
 
 def _counted():
-    from instance_nerf_tpu_torch.kernels import adam_cuda, coarse_occ_cuda, nms_cuda, scatter_cuda
+    from instance_nerf_tpu_torch.kernels import (
+        adam_cuda,
+        coarse_occ_cuda,
+        hash_encode_cuda,
+        nms_cuda,
+        scatter_cuda,
+    )
 
-    # each has a ``launches`` count (B7's is its module's)
+    # each has a ``launches`` count (B7's and B8's are their modules')
     return {"nms_boxes": nms_cuda.nms_boxes, "nms_sweep": nms_cuda.nms_sweep,
             "scatter_add": scatter_cuda.scatter_add,
-            "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup, "adam": adam_cuda}
+            "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup, "adam": adam_cuda,
+            "hash_encode": hash_encode_cuda}
 
 
 def lap(parts: dict, name: str, since: float) -> float:
@@ -2651,6 +2672,220 @@ def phase_kernel_adam(smi):
     return report
 
 
+HASH_CONFIGS = ("field_hash", "fleet_hash")  # the benchmark's configurations
+
+
+def hash_bound_ms(points: int, levels: int, features: int, backward: bool) -> float:
+    """B8's least time at the HBM peak for ``points`` points: the forward
+    reads a point (12 bytes) and its 8 rows of F floats a level and writes
+    its L * F features; the backward reads the point and its features'
+    gradient and writes 8 int32 rows and 8 rows of F floats a level."""
+    lf = levels * features
+    if backward:
+        per = 12 + 4 * lf + levels * 8 * (4 + 4 * features)
+    else:
+        per = 12 + 4 * lf + 8 * lf * 4
+    return points * per / PEAK_BYTES_PER_S * 1e3
+
+
+def _hash_points(shape, gen):
+    """Uniform points in [0, 1] on the card, a few exactly at 0 and 1."""
+    import torch
+
+    xyz = torch.rand(shape, generator=gen, device="cuda")
+    flat = xyz.view(-1, 3)
+    flat[0], flat[1], flat[2] = 1.0, 0.0, torch.tensor([1.0, 0.5, 0.0])
+    return xyz
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in f32 ulps between two arrays of one sign
+    pattern (int32 views; a sign that differs counts as the whole range)."""
+    import torch
+
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _hash_case(model, xyz, grad: bool, gen) -> dict:
+    """B8 against the plain chain at ``xyz``: features (and with ``grad``
+    the backward's rows and products and the table gradient through B3),
+    launches counted."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels import hash_encode_cuda, scatter_cuda
+    from instance_nerf_tpu_torch.models import hashgrid as TH
+
+    table, res = model.hash_table, model.resolutions
+    got = {}
+    real_gather, real_scatter = TH.gather_rows, scatter_cuda.level_scatter_add
+
+    def gather_rows(table2d, flat, *a, **k):
+        got["flat"] = flat
+        return real_gather(table2d, flat, *a, **k)
+
+    def level_scatter_add(flat, d_rows, *a, **k):
+        got.setdefault("d_rows", d_rows)
+        return real_scatter(flat, d_rows, *a, **k)
+
+    TH.gather_rows, scatter_cuda.level_scatter_add = gather_rows, level_scatter_add
+    try:
+        with torch.set_grad_enabled(grad):
+            table.grad = None
+            plain = TH.hash_encode_plain(table, xyz, res, pallas_grad=True)
+            g = torch.randn(plain.shape, generator=gen, device="cuda")
+            if grad:
+                (plain * g).sum().backward()
+                plain_grad, table.grad = table.grad, None
+            before = (hash_encode_cuda.launches, hash_encode_cuda.grad_launches,
+                      scatter_cuda.scatter_add.launches)
+            feats = TH.hash_encode(table, xyz, res, pallas_grad=True)
+            if grad:
+                (feats * g).sum().backward()
+            torch.cuda.synchronize()
+            after = (hash_encode_cuda.launches, hash_encode_cuda.grad_launches,
+                     scatter_cuda.scatter_add.launches)
+    finally:
+        TH.gather_rows, scatter_cuda.level_scatter_add = real_gather, real_scatter
+    # the products' magnitudes, for the bound of the sum in any order
+    mag = TH.hash_encode_plain(table.detach().abs(), xyz, res)
+    diff = (feats.detach() - plain.detach()).abs()
+    out = {"points": xyz.numel() // 3, "launches": [a - b for a, b in zip(after, before)],
+           "feats_bit_equal": bool(torch.equal(feats.view(torch.int32),
+                                               plain.view(torch.int32))),
+           "feats_max_ulps": _ulps(feats.detach(), plain.detach()),
+           "feats_differ": int((diff > 0).sum()),
+           "feats_within_bound": bool((diff <= 7 * 1.1920929e-07 * mag).all())}
+    if grad:
+        rows, d_rows = hash_encode_cuda.corner_grads(table.shape, xyz, g, res)
+        out["rows_bit_equal"] = bool(torch.equal(rows, got["flat"]))
+        out["d_rows_bit_equal"] = bool(torch.equal(d_rows.view(torch.int32),
+                                                   got["d_rows"].view(torch.int32)))
+        err = float((table.grad - plain_grad).abs().max())
+        out["grad_max_abs_err"], out["grad_max"] = err, float(plain_grad.abs().max())
+        out["grad_ok"] = err <= 1e-5 * out["grad_max"]
+        table.grad = None
+    return out
+
+
+def phase_kernel_hash_encode(smi):
+    """Kernel B8 against the plain chain on the card at the benchmark's
+    field and B = 32 fleet shapes (a step's points with the gradient, the
+    refresh's without), a trainer's call counted, both kernels timed beside
+    their bound and the plain chain."""
+    import torch
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.kernels import hash_encode_cuda
+    from instance_nerf_tpu_torch.models import hashgrid as TH
+    from instance_nerf_tpu_torch.train import ngp_trainer as TT
+    from instance_nerf_tpu_torch.train.multiscene import OCC_QUERY_POINTS, MultiSceneFieldTrainer
+
+    report = {"phase": "kernel_hash_encode", "nvidia_smi": smi, "configs": {}}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name in HASH_CONFIGS:
+        cfg, raw = _bench_ngp_config(name)
+        b = raw.get("n_scenes")
+        model = TT.build_model(cfg, b).to("cuda")
+        with torch.no_grad():
+            model.hash_table.uniform_(-1.0, 1.0, generator=gen)
+        lead = () if b is None else (b,)
+        step_n = cfg.n_rays * cfg.k_occupied
+        if b is None:
+            refresh_n = min(cfg.occ_res ** 3, 2 ** 18)  # a chunk of render.update_occupancy
+        else:
+            refresh_n = min(int(cfg.occ_res ** 3 * cfg.occ_subsample), OCC_QUERY_POINTS // b)
+        step = _hash_points((*lead, step_n, 3), gen)
+        refresh = _hash_points((*lead, refresh_n, 3), gen)
+        out = {"B": b, "cases": {"step": _hash_case(model, step, True, gen),
+                                 "refresh": _hash_case(model, refresh, False, gen)}}
+        bad = {k: v for k, v in out["cases"].items()
+               if not v["feats_within_bound"] or not v.get("rows_bit_equal", True)
+               or not v.get("d_rows_bit_equal", True) or not v.get("grad_ok", True)
+               or v["launches"][:2] != ([1, 1] if k == "step" else [1, 0])}
+        if bad:
+            emit({**report, "failed": name, "cases": out["cases"]})
+            raise AssertionError(f"kernel_hash_encode {name}: B8 differs from the plain chain "
+                                 f"or launched otherwise: {bad}")
+        # timing: the forward without gradient, the backward's launch, and
+        # the plain chain's forward and forward + backward
+        table, res = model.hash_table, model.resolutions
+        g = torch.randn((*lead, step_n, cfg.n_levels * cfg.n_features), generator=gen,
+                        device="cuda")
+        pts = b * step_n if b else step_n
+
+        def fwd():
+            with torch.no_grad():
+                TH.hash_encode(table, step, res)
+
+        def bwd():
+            hash_encode_cuda.corner_grads(table.shape, step, g, res)
+
+        def plain_fwd():
+            with torch.no_grad():
+                TH.hash_encode_plain(table, step, res)
+
+        def both(encode):
+            def run():
+                table.grad = None
+                (encode(table, step, res, pallas_grad=True) * g).sum().backward()
+            return run
+
+        timing = {"points": pts,
+                  "ms": cuda_ms(fwd, reps=20), "grad_ms": cuda_ms(bwd, reps=20),
+                  "bound_ms": hash_bound_ms(pts, cfg.n_levels, cfg.n_features, False),
+                  "grad_bound_ms": hash_bound_ms(pts, cfg.n_levels, cfg.n_features, True),
+                  "bound_by": "bytes", "host_ms": host_ms(fwd, reps=20),
+                  "plain_ms": cuda_ms(plain_fwd, reps=5, warmup=1),
+                  "step_ms": cuda_ms(both(TH.hash_encode), reps=10),
+                  "plain_step_ms": cuda_ms(both(TH.hash_encode_plain), reps=5, warmup=1)}
+        profiled(timing, "device_ms", fwd, 10, "hash_encode_kernel", "hash_encode_kernel")
+        profiled(timing, "grad_device_ms", bwd, 10, "hash_encode_grad_kernel",
+                 "hash_encode_grad_kernel")
+        table.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        both(TH.hash_encode)()
+        timing["step_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+        table.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        both(TH.hash_encode_plain)()
+        timing["plain_step_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+        table.grad = None
+        out["timing"] = timing
+        del model, table, step, refresh, g
+        release()
+        # a trainer's call of occ_update_every steps: its launches
+        rng = np.random.default_rng(0)
+        if b is None:
+            scene, _ = make_synthetic_nerf_scene(rng, device="cuda", **FIELD_SCENE)
+            tr = TT.InstanceFieldTrainer(cfg, seed=0, device="cuda")
+            call = lambda: tr.train(scene, cfg.occ_update_every, log_every=0)  # noqa: E731
+        else:
+            scenes = [make_synthetic_nerf_scene(rng, device="cuda", **FLEET_SCENE)[0]
+                      for _ in range(b)]
+            tr = MultiSceneFieldTrainer(scenes, cfg, seed=0, device="cuda", device_data=True)
+            call = lambda: tr.train(cfg.occ_update_every, log_every=0)  # noqa: E731
+        before = (hash_encode_cuda.launches, hash_encode_cuda.grad_launches)
+        call()
+        torch.cuda.synchronize()
+        out["launches_call"] = hash_encode_cuda.launches - before[0]
+        out["grad_launches_call"] = hash_encode_cuda.grad_launches - before[1]
+        want = (cfg.occ_update_every + (-(-cfg.occ_res ** 3 // 2 ** 18) if b is None else 1),
+                cfg.occ_update_every)
+        if (out["launches_call"], out["grad_launches_call"]) != want:
+            raise AssertionError(f"kernel_hash_encode {name}: a call launched B8 "
+                                 f"{out['launches_call']} / {out['grad_launches_call']} "
+                                 f"times, not {want}")
+        report["configs"][name] = out
+        del tr, call
+        release()
+    emit(report)
+    return report
+
+
 def phase_project_masks(work):
     """A synthetic voxel instance grid and alpha grid projected into 8 views
     at 128^2 on the card and on the CPU: the id maps equal exactly."""
@@ -4212,6 +4447,7 @@ def main():
         fleet, fleet_case = phase_slice_fleet(work, smi)
         phase_small_reference_fleet()
         adam = phase_kernel_adam(smi)
+        hashenc = phase_kernel_hash_encode(smi)
         phase_project_masks(work)
         dist = phase_slice_dist(work, smi)
         sp_out = prepare_slice_spatial(work)
@@ -4309,6 +4545,15 @@ def main():
                                 for k, v in adam["configs"].items()},
         "max_abs_err": 0.0, **{k: {**v["timing"], "entries": v["entries"]}
                                for k, v in adam["configs"].items()},
+    }, {
+        "name": "hash_encode", "route": "cuda",
+        "source": "instance_nerf_tpu_torch/csrc/hash_encode.cu", "replaces": None,
+        "launches": launches_field["hash_encode"],
+        "launches_fleet": fleet["launches_rgb"]["hash_encode"],
+        **{k: {**v["timing"], "launches_call": v["launches_call"],
+               "grad_launches_call": v["grad_launches_call"],
+               "feats_max_ulps": v["cases"]["step"]["feats_max_ulps"]}
+           for k, v in hashenc["configs"].items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4334,9 +4579,9 @@ def main_spatial():
                                  "count": torch.cuda.device_count()}})
 
 
-def main_kernel_adam():
-    """``--only kernel_adam``: the environment, the kernels' build and
-    ``kernel_adam``."""
+def main_one(phase):
+    """``--only kernel_adam`` / ``--only kernel_hash_encode``: the
+    environment, the kernels' build and that phase."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4344,7 +4589,7 @@ def main_kernel_adam():
         sys.exit(1)
     smi = phase_env()
     phase_build()
-    phase_kernel_adam(smi)
+    phase(smi)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4356,6 +4601,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--only", "slice_spatial"]:
         main_spatial()
     elif sys.argv[1:] == ["--only", "kernel_adam"]:
-        main_kernel_adam()
+        main_one(phase_kernel_adam)
+    elif sys.argv[1:] == ["--only", "kernel_hash_encode"]:
+        main_one(phase_kernel_hash_encode)
     else:
         main()

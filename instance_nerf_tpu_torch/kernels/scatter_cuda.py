@@ -190,6 +190,16 @@ def level_scatter_add_plain(flat_idx: torch.Tensor, d_rows: torch.Tensor, n_leve
                           d_rows)
 
 
+def level_scatter_add(flat_idx: torch.Tensor, d_rows: torch.Tensor, n_levels: int,
+                      trailing: int, rows_per_level: int, replicas: int = 1) -> torch.Tensor:
+    """The table gradient of a multi-level gather (``level_scatter_add_plain``'s
+    sum): kernel B3 for CUDA tensors, one launch for all levels; the plain
+    version for CPU ones."""
+    if d_rows.device.type == "cpu":
+        return level_scatter_add_plain(flat_idx, d_rows, n_levels, trailing, rows_per_level)
+    return _launch(flat_idx, d_rows, n_levels, trailing, rows_per_level, replicas)
+
+
 class _GatherRowsKernelGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table2d, flat_idx, n_levels, trailing, replicas, rows_dtype):
@@ -202,12 +212,8 @@ class _GatherRowsKernelGrad(torch.autograd.Function):
     def backward(ctx, d_rows):
         (flat_idx,) = ctx.saved_tensors
         rows_per_level, n_levels, trailing, replicas = ctx.layout
-        d_rows = d_rows.float().contiguous()
-        if d_rows.device.type == "cpu":
-            d_table = level_scatter_add_plain(flat_idx, d_rows, n_levels, trailing,
-                                              rows_per_level)
-        else:
-            d_table = _launch(flat_idx, d_rows, n_levels, trailing, rows_per_level, replicas)
+        d_table = level_scatter_add(flat_idx, d_rows.float().contiguous(), n_levels, trailing,
+                                    rows_per_level, replicas)
         return d_table, None, None, None, None, None
 
 

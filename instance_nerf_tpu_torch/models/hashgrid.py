@@ -1,15 +1,19 @@
 """Multiresolution hash-grid NGP with an instance-logit head (PyTorch
 counterpart of ``instance_nerf_tpu.models.hashgrid``).
 
-``hash_encode`` fuses all L levels x 8 corners into ONE flat gather from
-the ``(L * T, F)`` table, as the JAX package does. With ``pallas_grad`` the
-table gradient runs through the hand-written scatter-add kernel
-(``kernels/scatter_cuda.py:gather_rows_kernel_grad``, kernel B3), else
-through torch's own ``index_select`` backward. The name ``pallas_grad`` is
-kept from the JAX config.
+``hash_encode`` runs on the card as kernel B8
+(``kernels/hash_encode_cuda.py``): one launch computes every point's
+features at every level, and its backward hands the table gradient to the
+hand-written scatter-add (kernel B3) with ``pallas_grad``, else to
+``index_add_``. The name ``pallas_grad`` is kept from the JAX config.
 
-The hash is the uint32 wraparound multiply, XOR, ``% T`` of the JAX
-package, computed in int64 with each product masked to 32 bits.
+On the CPU it runs ``hash_encode_plain``, which fuses all L levels x 8
+corners into ONE flat gather from the ``(L * T, F)`` table, as the JAX
+package does, with its table gradient through B3's plain version
+(``kernels/scatter_cuda.py:gather_rows_kernel_grad``) or torch's own
+``index_select`` backward. Its hash is the uint32 wraparound multiply, XOR,
+``% T`` of the JAX package, computed in int64 with each product masked to
+32 bits. ``brick_encode`` (``models/fast_encode.py``) shares its helpers.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from instance_nerf_tpu_torch.kernels import hash_encode_cuda
 from instance_nerf_tpu_torch.kernels.scatter_cuda import gather_rows_kernel_grad
 from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
@@ -101,7 +106,18 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
                 pallas_grad: bool = False, stage=NO_STAGES) -> torch.Tensor:
     """Trilinear multiresolution hash encoding ``(L, T, F)`` table,
     ``(..., 3)`` points in [0, 1] -> ``(..., L * F)``; a fleet's ``(B, L, T,
-    F)`` tables take ``(B, ..., 3)``.
+    F)`` tables take ``(B, ..., 3)``. CPU tensors run ``hash_encode_plain``;
+    any other device kernel B8 (``kernels/hash_encode_cuda.py:hash_encode``),
+    which raises off CUDA and on a table or points it does not take, and
+    uploads nothing (``stage`` opens no wait)."""
+    if table.device.type == "cpu" and xyz.device.type == "cpu":
+        return hash_encode_plain(table, xyz, resolutions, pallas_grad, stage)
+    return hash_encode_cuda.hash_encode(table, xyz, resolutions, pallas_grad)
+
+
+def hash_encode_plain(table: torch.Tensor, xyz: torch.Tensor, resolutions,
+                      pallas_grad: bool = False, stage=NO_STAGES) -> torch.Tensor:
+    """``hash_encode`` as a chain of PyTorch operations (the CPU's path).
 
     Corners are clamped to ``res - 1`` so the +1 corner at xyz == 1 stays in
     range (its weight is 0). The flat index layout is ``(N, L, 8)``, corners
@@ -109,7 +125,8 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor, resolutions,
     fleet's is ``(N, B, L, 8)``, B * L levels. The JAX package chunks large
     batches under ``lax.map``; that changes nothing numerically, and the
     port encodes a batch in one pass. ``stage`` (``train/timing.py:Stages``)
-    uploads the host constants, six waits on the card a call."""
+    uploads the host constants: six uploads a call, each a wait where the
+    card tests run this chain on the card beside B8."""
     L, T, F = table.shape[-3:]
     lead = xyz.shape[:-1]
     x, b = scene_major_points(table, 3, xyz)

@@ -37,7 +37,7 @@ import torch
 
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.data.nerf_dataset import NeRFScene
-from instance_nerf_tpu_torch.kernels import scatter_cuda
+from instance_nerf_tpu_torch.kernels import build, scatter_cuda
 from instance_nerf_tpu_torch.models.hashgrid import density_activation
 from instance_nerf_tpu_torch.models.render import occupancy_cells
 from instance_nerf_tpu_torch.parallel.mesh import (
@@ -51,6 +51,7 @@ from instance_nerf_tpu_torch.parallel.mesh import (
 )
 from instance_nerf_tpu_torch.parallel.ngp_train_step import group_route, multiscene_loss_and_grads
 from instance_nerf_tpu_torch.train.ngp_trainer import (
+    FIELD_KERNELS,
     NGPConfig,
     adam_init,
     adam_update,
@@ -100,8 +101,10 @@ class MultiSceneFieldTrainer:
             self.device = mesh.device
         self.scenes = self.all_scenes[self._sl]
         b = len(self.scenes)
-        if cfg.dtype != "bfloat16" and self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
+        if self.device.type == "cuda":
+            build.build_all(FIELD_KERNELS)
+            if cfg.dtype != "bfloat16":
+                torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         self.model = build_model(cfg, n_scenes=b)
         if self._split:  # the whole fleet's init, this rank's block of it
             full = build_model(cfg, n_scenes=self.n_global)

@@ -35,7 +35,7 @@ import torch
 from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.convert import ngp_params_from_jax, unflatten_npz
 from instance_nerf_tpu_torch.data.nerf_dataset import NeRFScene
-from instance_nerf_tpu_torch.kernels import adam_cuda, scatter_cuda
+from instance_nerf_tpu_torch.kernels import adam_cuda, build, scatter_cuda
 from instance_nerf_tpu_torch.models.fast_encode import InstanceNGPFast, is_instance_param
 from instance_nerf_tpu_torch.models.hashgrid import InstanceNGP, density_activation
 from instance_nerf_tpu_torch.models.render import (
@@ -49,6 +49,11 @@ from instance_nerf_tpu_torch.models.render import (
     update_occupancy,
 )
 from instance_nerf_tpu_torch.train.timing import NO_STAGES, Stages, benchmark_ms, profile_ms
+
+
+# the hand-written kernels of a field's training step (B8, B3, B7), built
+# together when a trainer is made on the card: one nvcc each, in parallel
+FIELD_KERNELS = ("hash_encode", "scatter_add", "adam")
 
 
 @dataclass
@@ -278,9 +283,11 @@ class InstanceFieldTrainer:
     def __init__(self, cfg: NGPConfig | None = None, seed: int = 0, device="cuda"):
         self.cfg = cfg = cfg or NGPConfig()
         self.device = resolve_device(device)
-        if cfg.dtype != "bfloat16" and self.device.type == "cuda":
-            # f32 means f32: no TF32 in the MLP matmuls
-            torch.backends.cuda.matmul.allow_tf32 = False
+        if self.device.type == "cuda":
+            build.build_all(FIELD_KERNELS)
+            if cfg.dtype != "bfloat16":
+                # f32 means f32: no TF32 in the MLP matmuls
+                torch.backends.cuda.matmul.allow_tf32 = False
         self.model = build_model(cfg)
         init_ngp_params(self.model, seed)
         self.model.to(self.device)

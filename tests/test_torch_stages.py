@@ -6,7 +6,7 @@ stage it sits in), and every stage span the paths opened before;
 ``Stages.upload`` is ``torch.as_tensor``; without a profiler ``Stages``
 opens no range; ``profile_ms``' busy share is the union of the device's
 intervals. On a card, one call of each path raises no synchronisation
-warning outside a ``wait`` span.
+warning outside a ``wait`` span, and the encoding (kernel B8) opens none.
 
 The counts a call: the field uploads the scene's poses once, each step's
 view and pixel ids and targets (4, ``rays``) and the encoding's six host
@@ -14,7 +14,9 @@ constants (``encode``; in the refresh six per chunk of points,
 ``occ_update``), waits once a step inside the backward (``cumprod``'s
 backward reads back whether a factor is 0), and reads its metrics back
 (one span for their ``float``s). The fleet's card draws upload nothing;
-its host draws upload 4 arrays a batch (``rays``).
+its host draws upload 4 arrays a batch (``rays``). On the card the
+encoding is kernel B8, whose constants are kernel arguments: no wait in
+``encode`` and none in the refresh.
 
 No JAX here: the card test runs on a machine without it
 (``python -m pytest --noconftest tests/test_torch_stages.py``).
@@ -76,6 +78,11 @@ def _traced(call, prefix):
     sit in)``, None for a wait outside every stage."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         call()
+    return _spans(prof, prefix)
+
+
+def _spans(prof, prefix):
+    """A profile's ``(span counts, waits by the stage they sit in)``."""
     own = [e for e in prof.events() if e.name.startswith(prefix + ".")]
     counts = Counter(e.name[len(prefix) + 1:] for e in own)
     inside = Counter()
@@ -236,8 +243,14 @@ def test_no_sync_outside_wait_on_the_card(monkeypatch, capsys):
                 call()  # raises at a synchronisation outside a wait span
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        waits = sum(e.name == f"{label}.wait" for e in prof.events())
+        counts, inside = _spans(prof, label)
+        waits = counts["wait"]
         with capsys.disabled():
             print(f"\n{label}: one call of {STEPS} steps synchronises {len(syncs)} times "
                   f"and opens {waits} wait spans; none outside them")
         assert syncs and waits
+        # the CPU's counts less the encoding's uploads (test_field_call_spans,
+        # test_fleet_call_spans); the backward's waits run on autograd's
+        # device thread here, outside every stage span of the profile
+        assert inside == ({"rays": 4 * STEPS, None: 2 + STEPS} if label == "field"
+                          else {None: 1 + STEPS})
