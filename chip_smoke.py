@@ -2495,6 +2495,20 @@ def _copy_state(dst_model, dst_st, src_model, src_st):
     dst_st["count"] = src_st["count"]
 
 
+def _plain_adam(model, grads, st, stage, lr):
+    """``adam_update_plain`` over every leaf of ``model``, with the
+    trainers' frozen leaves and count (``ngp_trainer.adam_update``)."""
+    from instance_nerf_tpu_torch.kernels import adam_cuda
+    from instance_nerf_tpu_torch.models.fast_encode import is_instance_param
+
+    names, params = zip(*model.named_parameters())
+    st["count"] += 1
+    frozen = [stage == "instance" and not is_instance_param(n) for n in names]
+    adam_cuda.adam_update_plain(params, [grads.get(n) for n in names],
+                                [st["mu"][n] for n in names], [st["nu"][n] for n in names],
+                                frozen, st["count"], lr)
+
+
 def adam_bound_ms(model, stage, grads) -> float:
     """B7's least time for one step: each leaf's bytes once at 3.35 TB/s,
     28 an entry with a gradient (p, g, mu, nu read, p, mu, nu written), 24
@@ -2605,7 +2619,7 @@ def phase_kernel_adam(smi):
             _copy_state(twin, twin_st, model, tr.opt_state)
             before = adam_cuda.launches
             TT.adam_update(model, grads, tr.opt_state, stage, cfg.lr)
-            adam_cuda.adam_update_plain(twin, grads, twin_st, stage, cfg.lr)
+            _plain_adam(twin, grads, twin_st, stage, cfg.lr)
             torch.cuda.synchronize()
             cases[f"real_{stage}"] = {
                 "count": tr.opt_state["count"], "launches": adam_cuda.launches - before,
@@ -2621,7 +2635,7 @@ def phase_kernel_adam(smi):
                 _copy_state(twin, twin_st, model, st)
                 before = adam_cuda.launches
                 TT.adam_update(model, grads, st, stage, cfg.lr)
-                adam_cuda.adam_update_plain(twin, grads, twin_st, stage, cfg.lr)
+                _plain_adam(twin, grads, twin_st, stage, cfg.lr)
                 torch.cuda.synchronize()
                 cases[f"{case}_{count}"] = {"launches": adam_cuda.launches - before,
                                             "mismatches": _state_mismatches(model, st, twin,
@@ -2643,7 +2657,7 @@ def phase_kernel_adam(smi):
             TT.adam_update(model, grads, st, "rgb", cfg.lr)
 
         def plain():
-            adam_cuda.adam_update_plain(twin, grads, twin_st, "rgb", cfg.lr)
+            _plain_adam(twin, grads, twin_st, "rgb", cfg.lr)
 
         timing = {"ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
                   "host_ms": host_ms(kernel, reps=20), "plain_host_ms": host_ms(plain, reps=3),
@@ -3579,10 +3593,9 @@ def _ref_runs(mesh=None):
     from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
     from instance_nerf_tpu_torch.models.render import OccupancyGrid
     from instance_nerf_tpu_torch.parallel.mesh import local_rows
-    from instance_nerf_tpu_torch.parallel.ngp_train_step import sharded_ngp_loss_and_grads
     from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
     from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig, build_model, \
-        fast_ngp_config, init_ngp_params
+        fast_ngp_config, field_loss_and_grads, init_ngp_params
 
     out = {}
     for name, kind, rotated in (("fcos_aabb", "fcos", False), ("rpn_rotated", "rpn", True),
@@ -3624,10 +3637,10 @@ def _ref_runs(mesh=None):
     occ = OccupancyGrid(torch.as_tensor(np.where(rng.uniform(size=(16,) * 3) < 0.4, 1e3, 0.0),
                                         dtype=torch.float32, device="cuda"), cfg.occ_threshold)
     zero_launches()
-    m, g = sharded_ngp_loss_and_grads(model, cfg, "instance", occ,
-                                      *(torch.as_tensor(a, device="cuda") for a in rays),
-                                      group=None if mesh is None else mesh.data_group,
-                                      stratified=False)
+    m, g = field_loss_and_grads(model, cfg, "instance", occ,
+                                *(torch.as_tensor(a, device="cuda") for a in rays),
+                                group=None if mesh is None else mesh.data_group,
+                                stratified=False)
     torch.cuda.synchronize()
     field_launches = read_launches()["scatter_add"]
     out["field"] = ({k: float(v) for k, v in m.items()},

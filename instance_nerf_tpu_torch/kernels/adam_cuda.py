@@ -3,8 +3,9 @@ version.
 
 ``adam_update_plain`` is the optax-style Adam step of the field trainers
 (``optax.adam(lr, b1=0.9, b2=0.99, eps=1e-15)`` under the JAX trainer's
-rules, see ``train/ngp_trainer.py``): 14 tensor operations a leaf.
-``adam_step`` does the same for CUDA leaves in ONE launch of
+rules, see ``train/ngp_trainer.py:adam_update``, which decides the frozen
+leaves and the count): 14 tensor operations a leaf. ``adam_step`` does the
+same, with the same arguments, for CUDA leaves in ONE launch of
 ``csrc/adam.cu`` for every leaf of the model: each entry's p, g, mu and nu
 read once and p, mu and nu written once, in place. B7 replaces no TPU
 kernel (XLA fuses optax's update on the TPU); it exists because the plain
@@ -33,7 +34,6 @@ import numpy as np
 import torch
 
 from instance_nerf_tpu_torch.kernels import build
-from instance_nerf_tpu_torch.models.fast_encode import is_instance_param
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
 GRADIENT, NO_GRADIENT, FROZEN = 0, 1, 2
@@ -56,25 +56,22 @@ def bias_corrections(count: int) -> tuple[float, float]:
 
 
 @torch.no_grad()
-def adam_update_plain(model: torch.nn.Module, grads: dict, st: dict, stage: str,
-                      lr: float) -> None:
-    """One optax-style Adam step over every parameter of ``model`` in place
-    (see ``train/ngp_trainer.py`` for the masking rules); a fleet's stacked
-    parameters update elementwise with the one shared count."""
+def adam_update_plain(params, grads, mus, nus, frozen, count: int, lr: float) -> None:
+    """``adam_step`` in PyTorch operations, on any device: one Adam step
+    with the step count ``count`` (already advanced) over the leaves
+    ``params[i]`` with gradient ``grads[i]`` (or None) and moments
+    ``mus[i]``, ``nus[i]``, in place; ``frozen[i]`` masks the update of p
+    (its gradient is not read)."""
     b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
-    st["count"] += 1
-    bc1, bc2 = bias_corrections(st["count"])
-    for name, p in model.named_parameters():
-        frozen = stage == "instance" and not is_instance_param(name)
-        g = None if frozen else grads.get(name)
-        mu, nu = st["mu"][name], st["nu"][name]
+    bc1, bc2 = bias_corrections(count)
+    for p, g, mu, nu, fz in zip(params, grads, mus, nus, frozen):
         mu.mul_(b1)
         nu.mul_(b2)
+        if fz:
+            continue
         if g is not None:
             mu.add_(g * (1 - b1))
             nu.add_(g * g * (1 - b2))
-        if frozen:
-            continue
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
         p.add_(upd.mul_(-lr))
 

@@ -393,6 +393,39 @@ def _bucket_render(model_apply, origins, dirs, t, dt, occ_all, occ, valid, k_buc
                                  inv) for f in RenderOut._fields))
 
 
+class Candidates(NamedTuple):
+    """A ray batch's candidate samples (``candidates``)."""
+
+    xyz: torch.Tensor  # (..., R, S, 3), clamped to the cube
+    t: torch.Tensor  # (..., R, S)
+    dt: torch.Tensor  # (..., R, S)
+    valid: torch.Tensor  # (..., R): the ray meets the cube
+    occupied: torch.Tensor | None  # (..., R, S) occupancy of each candidate
+    coarse: bool  # ``occupied`` read on the max-pooled coarse grid
+
+
+def candidates(origins, dirs, n_samples: int, occ: OccupancyGrid | None,
+               stratified: bool = True, occ_coarse_res: int | None = None,
+               ray_jitter: bool = False, generator=None, jitter=None,
+               occupancy: bool = True) -> Candidates:
+    """``render_rays``' candidates: AABB clip -> ``n_samples`` samples a ray
+    (stratified from ``generator``, or the ``jitter`` draws) -> clamp to
+    the cube, and with ``occupancy`` each candidate's occupancy, on the
+    max-pooled coarse grid where ``occ_coarse_res`` is below the grid's
+    resolution, else on the grid itself."""
+    near, far = ray_aabb(origins, dirs)
+    valid = far > near
+    far = torch.maximum(far, near + 1e-4)
+    xyz, t, dt = sample_points(origins, dirs, n_samples, near, far, stratified,
+                               per_ray_jitter=ray_jitter, generator=generator, jitter=jitter)
+    xyz = torch.clamp(xyz, 0.0, 1.0)
+    coarse = occ_coarse_res is not None and occ is not None and occ_coarse_res < occ.res
+    occupied = None
+    if occupancy:
+        occupied = coarse_occupancy_mxu(occ, xyz, occ_coarse_res) if coarse else occ.occupied(xyz)
+    return Candidates(xyz, t, dt, valid, occupied, coarse)
+
+
 def render_rays(model_apply, origins, dirs, n_samples: int = 128,
                 occ: OccupancyGrid | None = None, stratified: bool = True,
                 with_instance: bool = True, k_occupied: int | None = None,
@@ -421,33 +454,20 @@ def render_rays(model_apply, origins, dirs, n_samples: int = 128,
         # up front: a bad ladder would otherwise fail far from the string
         # that produced it
         _check_buckets(k_buckets, n_samples)
+    compact = buckets or (k_occupied is not None and occ is not None
+                          and k_occupied < n_samples)
     with stage("occupancy"):
-        near, far = ray_aabb(origins, dirs)
-        valid = far > near
-        far = torch.maximum(far, near + 1e-4)
-        xyz, t, dt = sample_points(origins, dirs, n_samples, near, far, stratified,
-                                   per_ray_jitter=ray_jitter, generator=generator,
-                                   jitter=jitter)
-        xyz_c = torch.clamp(xyz, 0.0, 1.0)
-        use_coarse = (occ_coarse_res is not None and occ is not None
-                      and occ_coarse_res < occ.res)
-        compact = buckets or (k_occupied is not None and occ is not None
-                              and k_occupied < n_samples)
-        if compact:
-            if use_coarse:
-                occ_all = coarse_occupancy_mxu(occ, xyz_c, occ_coarse_res)
-            else:
-                occ_all = occ.occupied(xyz_c)  # (R, S)
+        c = candidates(origins, dirs, n_samples, occ, stratified, occ_coarse_res, ray_jitter,
+                       generator, jitter, occupancy=compact)
     if buckets:
-        return _bucket_render(model_apply, origins, dirs, t, dt, occ_all, occ, valid,
-                              k_buckets, fuse_buckets, with_instance, use_coarse, stage,
-                              route)
+        return _bucket_render(model_apply, origins, dirs, c.t, c.dt, c.occupied, occ, c.valid,
+                              k_buckets, fuse_buckets, with_instance, c.coarse, stage, route)
     if compact:
-        return _compact_render(model_apply, origins, dirs, t, dt, occ_all, occ,
-                               k_occupied, with_instance, valid, use_coarse, stage)
-    vd = dirs[..., None, :].expand(xyz.shape)
-    sigma_raw, rgb, logits = model_apply(xyz_c, vd)
+        return _compact_render(model_apply, origins, dirs, c.t, c.dt, c.occupied, occ,
+                               k_occupied, with_instance, c.valid, c.coarse, stage)
+    vd = dirs[..., None, :].expand(c.xyz.shape)
+    sigma_raw, rgb, logits = model_apply(c.xyz, vd)
     with stage("composite_loss"):
-        occ_mask = occ.occupied(xyz_c) if occ is not None else None
+        occ_mask = occ.occupied(c.xyz) if occ is not None else None
         return composite(sigma_raw, rgb, logits if with_instance else None,
-                         t, dt, occ_mask, valid.to(xyz.dtype), stage)
+                         c.t, c.dt, occ_mask, c.valid.to(c.xyz.dtype), stage)

@@ -1,41 +1,26 @@
-"""The multi-scene (fleet) instance-field loss and gradients on one card
-(PyTorch counterpart of ``instance_nerf_tpu.parallel.ngp_train_step``'s
-``make_multiscene_ngp_step``; the step itself is
-``train/multiscene.py:MultiSceneFieldTrainer.train_step``, this function
-then ``ngp_trainer.adam_update``, and ``init_multiscene_params`` is
-``ngp_trainer.init_ngp_params`` of the batched field).
+"""What the instance field's training step does over ranks (PyTorch
+counterpart of the rank-facing parts of
+``instance_nerf_tpu.parallel.ngp_train_step``): the step itself is
+``train/ngp_trainer.py:field_loss_and_grads``, for one scene, a fleet, and
+either with its rays split over a process group (``parallel/mesh.py``).
 
-A fleet is one batched field (``build_model(cfg, n_scenes=B)``): every
-parameter stacked on a leading scene axis, the B scenes' brick or hash
-tables one ``(B * L * T, W)`` table whose flat indices lay out ``(N, B,
-L)``, so that with ``pallas_grad`` the whole fleet's table gradient is ONE
-launch of kernel B3 over B * L levels; the MLPs run as batched matmuls over
-``(B, in, out)`` weights. The loss is the SUM over scenes of each scene's
-total, so each scene's gradient is its own, and Adam updates the stacked
-parameters elementwise with one shared count (the single-scene trainer's
-``adam_update``). In the instance stage the gradients and updates outside
-``inst_*`` are masked.
-
-``sharded_ngp_loss_and_grads`` is the JAX package's single-scene
-``make_sharded_ngp_step`` over a process group (``parallel/mesh.py``):
-each rank renders its own block of the rays, the losses' partial sums
-(``ngp_trainer.partial_sums``, the JAX step's ``_losses``) are summed over
-the ranks in the forward and each rank's loss is its numerators over the
-global normalisers (``ngp_trainer.sums_to_losses``, which also makes the
-one-process ``field_losses``), and the gradients are SUMmed over the
-ranks; the caller then runs ``adam_update`` on every rank. A fleet whose
-scenes' rays are split over ranks takes its per-scene losses the same
-way (``train/multiscene.py``).
+The JAX package's ``make_sharded_ngp_step`` splits one scene's rays over
+the ranks, and ``make_multiscene_ngp_step`` a fleet's scenes and, with
+fewer scenes than ranks, each scene's rays. Each rank renders its own
+block; the losses' partial sums are summed over the ranks in the forward,
+each rank's loss is its numerators over the global normalisers, and the
+gradients are SUMmed over the ranks (``sum_grads``). Here: each rank's
+stratified draws (``rank_generator``), the routing of ``k_buckets`` over a
+scene's whole ray batch (``group_route``), and the gradient sum.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from instance_nerf_tpu_torch.models.render import OccupancyGrid, bucket_sizes, render_rays
-from instance_nerf_tpu_torch.parallel.mesh import all_reduce_sum, distributed, forward_sum
-from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig, partial_sums, sums_to_losses
-from instance_nerf_tpu_torch.train.timing import NO_STAGES
+from instance_nerf_tpu_torch.models.render import bucket_sizes
+from instance_nerf_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def rank_generator(seed: int, rank: int, device) -> torch.Generator:
     """The ray-sharded step's generator of rank ``rank``: seeded from
@@ -45,38 +30,7 @@ def rank_generator(seed: int, rank: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def sharded_ngp_loss_and_grads(model, cfg: NGPConfig, stage: str, occ: OccupancyGrid, o, d,
-                               target_rgb, target_inst, group=None, stratified: bool = True,
-                               generator=None, jitter=None, stages=NO_STAGES):
-    """The single-scene field's losses and gradients over rays split across
-    the ranks of ``group`` (this rank's ``(R_local, 3)`` block): the JAX
-    ``make_sharded_ngp_step``'s loss. ``k_buckets`` routes this rank's own
-    rays, as the JAX ``shard_map`` path does (zero collectives); the draws
-    are ``jitter`` or come from ``generator`` (``rank_generator``). Returns
-    (the global batch's metrics, ``{param name: the SUM over ranks of the
-    gradient, or None}``); ``adam_update`` follows on every rank. With
-    ``pallas_grad`` the table gradient is one launch of kernel B3 a rank."""
-    with_instance = stage != "rgb"
-    out = render_rays(lambda x, v: model(x, v, with_instance, stages), o, d,
-                      n_samples=cfg.n_samples, occ=occ, stratified=stratified,
-                      with_instance=with_instance, k_occupied=cfg.k_occupied,
-                      occ_coarse_res=cfg.occ_coarse_res, k_buckets=cfg.k_buckets,
-                      fuse_buckets=cfg.fuse_buckets, ray_jitter=cfg.ray_jitter,
-                      generator=generator, jitter=jitter, stage=stages)
-    with stages("composite_loss"):
-        local = partial_sums(out, target_rgb, target_inst, stage, cfg)
-        total = forward_sum(local, group=group)
-        loss, metrics = sums_to_losses(local, total, stage, cfg)
-    with stages("backward"):
-        names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    if distributed():
-        with stages("allreduce"):
-            grads = _sum_grads(grads, group)
-    return {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
-
-
-def _sum_grads(grads, group) -> list:
+def sum_grads(grads, group) -> list:
     """Each gradient summed over the ranks of ``group`` (None stays None:
     no rank's loss reached that parameter)."""
     grads = list(grads)
@@ -111,40 +65,3 @@ def group_route(k_buckets, group, n_ranks: int, index: int):
                 [(c, k) for c, (_, k) in zip(counts, sizes)])
 
     return route
-
-
-def multiscene_loss_and_grads(model, cfg: NGPConfig, stage: str, occ_grids, o, d,
-                              target_rgb, target_inst, generator=None, jitter=None,
-                              stages=NO_STAGES, group=None, route=None):
-    """Per-scene losses ``{name: (B,)}`` and ``{param name: grad or None}`` of
-    one fleet batch (rays ``(B, R, 3)``, grids ``(B, G, G, G)``): the
-    gradient of the sum over scenes of each scene's total. ``jitter``
-    ``(B, R, S)`` (or ``(B, R, 1)`` with ``ray_jitter``) replaces the draws
-    from ``generator``.
-
-    ``group``: these scenes' rays are split over its ranks (``o`` this
-    rank's block). The per-scene partial sums are then summed over the
-    group, each rank's loss is its numerators over the global normalisers,
-    and the gradients are SUMmed over the group; ``route`` (``group_route``)
-    routes ``k_buckets`` over each scene's whole ray batch."""
-    occ = OccupancyGrid(occ_grids, cfg.occ_threshold)
-    with_instance = stage != "rgb"
-    out = render_rays(lambda x, v: model(x, v, with_instance, stages), o, d,
-                      n_samples=cfg.n_samples, occ=occ, with_instance=with_instance,
-                      k_occupied=cfg.k_occupied, occ_coarse_res=cfg.occ_coarse_res,
-                      k_buckets=cfg.k_buckets, fuse_buckets=cfg.fuse_buckets,
-                      ray_jitter=cfg.ray_jitter, generator=generator, jitter=jitter,
-                      stage=stages, route=route)
-    with stages("composite_loss"):
-        local = partial_sums(out, target_rgb, target_inst, stage, cfg)
-        total = local.detach() if group is None else forward_sum(local, group=group)
-        loss, losses = sums_to_losses(local, total, stage, cfg)
-        loss = loss.sum()
-    with stages("backward"):
-        names, params = zip(*model.named_parameters())
-        # sum over scenes: d(sum) / d(params of scene b) is scene b's own gradient
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    if group is not None:
-        with stages("allreduce"):
-            grads = _sum_grads(grads, group)
-    return {k: v.detach() for k, v in losses.items()}, dict(zip(names, grads))

@@ -2,12 +2,15 @@
 counterpart of ``instance_nerf_tpu.train.multiscene``; BASELINE config #5).
 
 B scenes' fields advance in lock-step through one batched field
-(``parallel/ngp_train_step.py``): per-scene parameters and occupancy grids
-stacked on a leading scene axis, ``cfg.n_rays`` rays per scene a step. The
-ray batches are drawn as the JAX trainer draws them: on the host from one
-numpy stream (``_batch``, and ``_scan_batch`` for a call of several steps),
-or, with ``device_data``, from the images and masks kept on the card
-(uint8 / int8) with a ``torch.Generator``.
+(``build_model(cfg, n_scenes=B)``): per-scene parameters and occupancy
+grids stacked on a leading scene axis, the tables one ``(B * L * T, W)``
+table (with ``pallas_grad`` one launch of kernel B3 a step for the whole
+fleet), ``cfg.n_rays`` rays per scene a step. The step is the single
+scene's (``ngp_trainer.field_loss_and_grads``, then ``adam_update`` with
+one shared count). The ray batches are drawn as the JAX trainer draws
+them: on the host from one numpy stream (``_batch``, and ``_scan_batch``
+for a call of several steps), or, with ``device_data``, from the images
+and masks kept on the card (uint8 / int8) with a ``torch.Generator``.
 
 ``save(background=True)`` snapshots the state on the card at call time
 (the optimizer updates the live tensors in place) and writes it from a
@@ -19,12 +22,12 @@ min(B, n))``: the scenes split in contiguous blocks over the data ranks,
 each rank's batched field holding its B / n_data scenes (one launch of B3
 over them a step, no gradient collective). With fewer scenes than ranks
 each scene's rays split over its ``sp`` group, which sums the scene's
-losses and gradients (``parallel/ngp_train_step.py``) and routes
-``k_buckets`` over the scene's whole ray batch. Every draw (rays, jitter,
-occupancy refresh) is the whole fleet's, each rank taking its block, so a
-split fleet trains as the one-card fleet; occupancy refreshes stay per
-rank. ``save`` gathers the fleet to rank 0, which writes the one-card
-layout; ``restore`` gives each rank its block.
+losses and gradients and routes ``k_buckets`` over the scene's whole ray
+batch (``parallel/ngp_train_step.py:group_route``). Every draw (rays,
+jitter, occupancy refresh) is the whole fleet's, each rank taking its
+block, so a split fleet trains as the one-card fleet; occupancy refreshes
+stay per rank. ``save`` gathers the fleet to rank 0, which writes the
+one-card layout; ``restore`` gives each rank its block.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from instance_nerf_tpu_torch import resolve_device
 from instance_nerf_tpu_torch.data.nerf_dataset import NeRFScene
 from instance_nerf_tpu_torch.kernels import build, scatter_cuda
 from instance_nerf_tpu_torch.models.hashgrid import density_activation
-from instance_nerf_tpu_torch.models.render import occupancy_cells
+from instance_nerf_tpu_torch.models.render import OccupancyGrid, occupancy_cells
 from instance_nerf_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     barrier,
@@ -49,7 +52,7 @@ from instance_nerf_tpu_torch.parallel.mesh import (
     make_mesh,
     under_launcher,
 )
-from instance_nerf_tpu_torch.parallel.ngp_train_step import group_route, multiscene_loss_and_grads
+from instance_nerf_tpu_torch.parallel.ngp_train_step import group_route
 from instance_nerf_tpu_torch.train.ngp_trainer import (
     FIELD_KERNELS,
     NGPConfig,
@@ -58,6 +61,7 @@ from instance_nerf_tpu_torch.train.ngp_trainer import (
     build_model,
     chunk_sizes,
     fast_ngp_config,
+    field_loss_and_grads,
     init_ngp_params,
 )
 from instance_nerf_tpu_torch.train.timing import Stages, profile_ms
@@ -261,8 +265,9 @@ class MultiSceneFieldTrainer:
     # -- steps -----------------------------------------------------------------
 
     def loss_and_grads(self, stage: str, o, d, target_rgb, target_inst, jitter=None):
-        """This rank's scenes' losses and gradients (``multiscene_loss_and_grads``);
-        a split fleet's stratified draws are its block of the whole fleet's."""
+        """This rank's scenes' losses ``{name: (B,)}`` and gradients
+        (``field_loss_and_grads``); a split fleet's stratified draws are its
+        block of the whole fleet's."""
         cfg, mesh = self.cfg, self.mesh
         group = route = None
         if self._split:
@@ -274,9 +279,10 @@ class MultiSceneFieldTrainer:
                 group = mesh.sp_group
                 if cfg.k_buckets:
                     route = group_route(cfg.k_buckets, group, mesh.n_spatial, mesh.sp_index)
-        return multiscene_loss_and_grads(self.model, cfg, stage, self.occ_grids, o, d,
-                                         target_rgb, target_inst, self.gen, jitter,
-                                         self._stage, group, route)
+        return field_loss_and_grads(self.model, cfg, stage,
+                                    OccupancyGrid(self.occ_grids, cfg.occ_threshold), o, d,
+                                    target_rgb, target_inst, generator=self.gen, jitter=jitter,
+                                    stages=self._stage, group=group, route=route)
 
     def train_step(self, stage: str, o, d, target_rgb, target_inst, jitter=None) -> dict:
         """One fleet step, updating the parameters and Adam state in place;

@@ -41,13 +41,13 @@ from instance_nerf_tpu_torch.models.hashgrid import InstanceNGP, density_activat
 from instance_nerf_tpu_torch.models.render import (
     OccupancyGrid,
     camera_rays,
-    coarse_occupancy_mxu,
+    candidates,
     init_occupancy,
-    ray_aabb,
     render_rays,
-    sample_points,
     update_occupancy,
 )
+from instance_nerf_tpu_torch.parallel.mesh import forward_sum
+from instance_nerf_tpu_torch.parallel.ngp_train_step import sum_grads
 from instance_nerf_tpu_torch.train.timing import NO_STAGES, Stages, benchmark_ms, profile_ms
 
 
@@ -218,15 +218,47 @@ def sums_to_losses(local: torch.Tensor, total: torch.Tensor, stage: str, cfg: NG
     return loss, metrics
 
 
-def field_losses(out, target_rgb, target_inst, stage: str, cfg: NGPConfig) -> dict:
-    """The JAX step's losses of one process (``sums_to_losses``), ``psnr``,
-    and ``total`` carrying the gradient. With a leading scene axis (a
-    fleet's ``(B, R)`` rays) each is ``(B,)``, one per scene."""
-    local = partial_sums(out, target_rgb, target_inst, stage, cfg)
-    loss, losses = sums_to_losses(local, local.detach(), stage, cfg)
-    losses["psnr"] = -10.0 * torch.log10(torch.clamp(losses["rgb"], min=1e-8))
-    losses["total"] = loss
-    return losses
+SAMPLING_FIELDS = {"k_buckets", "k_occupied", "n_samples", "ray_jitter", "occ_coarse_res",
+                   "fuse_buckets"}
+
+
+def sampling(cfg: NGPConfig) -> dict:
+    """``render_rays``' sampling keywords: the ``SAMPLING_FIELDS`` of ``cfg``."""
+    return {f: getattr(cfg, f) for f in SAMPLING_FIELDS}
+
+
+def field_loss_and_grads(model, cfg: NGPConfig, stage: str, occ: OccupancyGrid, o, d,
+                         target_rgb, target_inst, *, generator=None, jitter=None,
+                         stratified: bool = True, stages=NO_STAGES, group=None, route=None):
+    """The JAX step's losses and gradients of one ray batch through the field
+    ``model`` with the sampling of ``cfg``: one scene's rays ``(R, 3)``, or a
+    fleet's ``(B, R, 3)`` and grids ``(B, G, G, G)``, whose loss is the SUM
+    over scenes (each scene's gradient its own). Returns (the detached
+    metrics of ``sums_to_losses``, ``(B,)`` for a fleet; ``{param name: grad
+    or None}``). The stratified draws come from ``generator`` or are
+    ``jitter``; ``stages`` opens the step's spans.
+
+    ``group``: the rays are split over its ranks (``o`` this rank's block):
+    the partial sums are summed over the group in the forward, each rank's
+    loss is its numerators over the global normalisers, and the gradients
+    are SUMmed over the group. ``route`` (``ngp_train_step.group_route``)
+    routes ``k_buckets`` over each scene's whole ray batch."""
+    with_instance = stage != "rgb"
+    out = render_rays(lambda x, v: model(x, v, with_instance, stages), o, d, occ=occ,
+                      stratified=stratified, with_instance=with_instance, generator=generator,
+                      jitter=jitter, stage=stages, route=route, **sampling(cfg))
+    with stages("composite_loss"):
+        local = partial_sums(out, target_rgb, target_inst, stage, cfg)
+        total = local.detach() if group is None else forward_sum(local, group=group)
+        loss, metrics = sums_to_losses(local, total, stage, cfg)
+        loss = loss.sum()
+    with stages("backward"):
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    if group is not None:
+        with stages("allreduce"):
+            grads = sum_grads(grads, group)
+    return {k: v.detach() for k, v in metrics.items()}, dict(zip(names, grads))
 
 
 def adam_init(model: torch.nn.Module) -> dict:
@@ -242,18 +274,11 @@ def adam_update(model: torch.nn.Module, grads: dict, st: dict, stage: str, lr: f
     parameters go through kernel B7 (``adam_cuda.adam_step``, one launch for
     every leaf), CPU parameters through ``adam_cuda.adam_update_plain``."""
     names, params = zip(*model.named_parameters())
-    if params[0].device.type == "cpu":
-        adam_cuda.adam_update_plain(model, grads, st, stage, lr)
-        return
     st["count"] += 1
     frozen = [stage == "instance" and not is_instance_param(n) for n in names]
-    adam_cuda.adam_step(params, [None if f else grads.get(n) for n, f in zip(names, frozen)],
-                        [st["mu"][n] for n in names], [st["nu"][n] for n in names], frozen,
-                        st["count"], lr)
-
-
-SAMPLING_FIELDS = {"k_buckets", "k_occupied", "n_samples", "ray_jitter", "occ_coarse_res",
-                   "fuse_buckets"}
+    step = adam_cuda.adam_update_plain if params[0].device.type == "cpu" else adam_cuda.adam_step
+    step(params, [None if f else grads.get(n) for n, f in zip(names, frozen)],
+         [st["mu"][n] for n in names], [st["nu"][n] for n in names], frozen, st["count"], lr)
 
 
 def replace_sampling(cfg: NGPConfig, overrides: dict) -> NGPConfig:
@@ -321,33 +346,25 @@ class InstanceFieldTrainer:
 
     # -- one step -------------------------------------------------------------
 
-    def _field(self, with_instance: bool):
-        stage = self._stage
-        return lambda xyz, vd: self.model(xyz, vd, with_instance, stage)
-
     def render(self, o, d, with_instance: bool, stratified: bool = True, jitter=None):
         """``render_rays`` with the config's sampling, the trainer's field,
         occupancy and generator (or the given ``jitter`` draws)."""
-        cfg = self.cfg
-        return render_rays(self._field(with_instance), o, d, n_samples=cfg.n_samples,
-                           occ=self.occ, stratified=stratified,
-                           with_instance=with_instance, k_occupied=cfg.k_occupied,
-                           occ_coarse_res=cfg.occ_coarse_res, k_buckets=cfg.k_buckets,
-                           fuse_buckets=cfg.fuse_buckets, ray_jitter=cfg.ray_jitter,
-                           generator=self.gen, jitter=jitter, stage=self._stage)
+        stage = self._stage
+        return render_rays(lambda xyz, vd: self.model(xyz, vd, with_instance, stage), o, d,
+                           occ=self.occ, stratified=stratified, with_instance=with_instance,
+                           generator=self.gen, jitter=jitter, stage=stage,
+                           **sampling(self.cfg))
 
     def loss_and_grads(self, stage: str, o, d, target_rgb, target_inst, jitter=None):
-        """Losses and ``{name: grad or None}`` of one batch (None where no
-        gradient flowed). ``jitter`` replaces the stratified draws."""
+        """Losses (``field_loss_and_grads``' and ``psnr``) and ``{name: grad
+        or None}`` of one batch. ``jitter`` replaces the stratified draws."""
         target_rgb = self._stage.upload(target_rgb, self.device, torch.float32)
         target_inst = self._stage.upload(target_inst, self.device)
-        out = self.render(o, d, with_instance=stage != "rgb", jitter=jitter)
-        with self._stage("composite_loss"):
-            losses = field_losses(out, target_rgb, target_inst, stage, self.cfg)
-        with self._stage("backward"):
-            names, params = zip(*self.model.named_parameters())
-            grads = torch.autograd.grad(losses["total"], params, allow_unused=True)
-        return {k: v.detach() for k, v in losses.items()}, dict(zip(names, grads))
+        losses, grads = field_loss_and_grads(self.model, self.cfg, stage, self.occ, o, d,
+                                             target_rgb, target_inst, generator=self.gen,
+                                             jitter=jitter, stages=self._stage)
+        losses["psnr"] = -10.0 * torch.log10(torch.clamp(losses["rgb"], min=1e-8))
+        return losses, grads
 
     def apply_grads(self, stage: str, grads: dict) -> None:
         """One optax-style Adam step over every parameter (see the module
@@ -408,20 +425,11 @@ class InstanceFieldTrainer:
         v, pix, _, _ = scene.ray_batch(np.random.default_rng(seed), n)
         poses = torch.as_tensor(scene.poses, dtype=torch.float32, device=self.device)
         o, d = rays_multi(poses, v, pix, scene)
-        near, far = ray_aabb(o, d)
-        valid = far > near
-        far = torch.maximum(far, near + 1e-4)
         if jitter is None and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        xyz, _, _ = sample_points(o, d, cfg.n_samples, near, far, True,
-                                  per_ray_jitter=cfg.ray_jitter, generator=generator,
-                                  jitter=jitter)
-        xyz = torch.clamp(xyz, 0.0, 1.0)
-        if cfg.occ_coarse_res and cfg.occ_coarse_res < self.occ.res:
-            occ_all = coarse_occupancy_mxu(self.occ, xyz, cfg.occ_coarse_res)
-        else:
-            occ_all = self.occ.occupied(xyz)
-        return torch.where(valid, occ_all.sum(-1), 0.0).cpu().numpy()
+        c = candidates(o, d, cfg.n_samples, self.occ, True, cfg.occ_coarse_res,
+                       cfg.ray_jitter, generator, jitter)
+        return torch.where(c.valid, c.occupied.sum(-1), 0.0).cpu().numpy()
 
     def train(self, scene: NeRFScene, steps: int, stage: str = "rgb",
               log_every: int = 100, log=print, steps_per_call: int | None = None) -> dict:

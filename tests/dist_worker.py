@@ -210,12 +210,15 @@ def run_cli(mesh, cli, argv):
 
 
 def field_step(mesh, cfg, params, occ, rays, stage):
-    """``sharded_ngp_loss_and_grads`` on this rank's block of ``rays``
+    """``field_loss_and_grads`` on this rank's block of ``rays``
     (unstratified): (metrics, summed gradients)."""
     from instance_nerf_tpu_torch.models.render import OccupancyGrid
     from instance_nerf_tpu_torch.parallel.mesh import local_rows
-    from instance_nerf_tpu_torch.parallel.ngp_train_step import sharded_ngp_loss_and_grads
-    from instance_nerf_tpu_torch.train.ngp_trainer import NGPConfig, build_model
+    from instance_nerf_tpu_torch.train.ngp_trainer import (
+        NGPConfig,
+        build_model,
+        field_loss_and_grads,
+    )
 
     cfg = NGPConfig(**cfg)
     model = build_model(cfg)
@@ -224,8 +227,8 @@ def field_step(mesh, cfg, params, occ, rays, stage):
                        (local_rows(mesh, rays) if mesh is not None else rays))
     occ = OccupancyGrid(torch.from_numpy(np.asarray(occ)), cfg.occ_threshold)
     group = mesh.data_group if mesh is not None else None
-    m, g = sharded_ngp_loss_and_grads(model, cfg, stage, occ, o, d, rgb, inst, group=group,
-                                      stratified=False)
+    m, g = field_loss_and_grads(model, cfg, stage, occ, o, d, rgb, inst, group=group,
+                                stratified=False)
     return {k: float(v) for k, v in m.items()}, g
 
 

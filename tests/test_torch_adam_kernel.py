@@ -214,7 +214,7 @@ def test_replay_of_the_kernel_matches_the_plain_version(n_scenes):
         mine = {k: v.detach().clone() for k, v in model.named_parameters()}
         mu = {k: v.clone() for k, v in st["mu"].items()}
         nu = {k: v.clone() for k, v in st["nu"].items()}
-        adam_cuda.adam_update_plain(model, grads, st, stage, cfg.lr)
+        TT.adam_update(model, grads, st, stage, cfg.lr)  # CPU leaves: the plain version
         frozen = [stage == "instance" and not is_instance_param(n) for n in names]
         modes = [FROZEN if fz else NO_GRADIENT if grads[n] is None else GRADIENT
                  for n, fz in zip(names, frozen)]
@@ -251,10 +251,16 @@ def test_adam_update_on_cpu_takes_the_plain_path(monkeypatch):
         TT.init_ngp_params(m, 1)
     sts = [TT.adam_init(m) for m in models]
     grads = {n: torch.randn_like(p) for n, p in models[0].named_parameters()}
+    names = list(grads)
     before = adam_cuda.launches
     for stage in ("rgb", "instance"):
         TT.adam_update(models[0], grads, sts[0], stage, cfg.lr)
-        adam_cuda.adam_update_plain(models[1], grads, sts[1], stage, cfg.lr)
+        sts[1]["count"] += 1
+        adam_cuda.adam_update_plain(
+            list(models[1].parameters()), [grads[n] for n in names],
+            [sts[1]["mu"][n] for n in names], [sts[1]["nu"][n] for n in names],
+            [stage == "instance" and not is_instance_param(n) for n in names],
+            sts[1]["count"], cfg.lr)
     assert adam_cuda.launches == before
     assert sts[0]["count"] == sts[1]["count"] == 2
     for (n, a), b in zip(models[0].named_parameters(), models[1].parameters()):

@@ -3,8 +3,8 @@ package's sharded steps: ranks spawned as processes of
 ``tests/dist_worker.py`` (gloo, a ``file://`` store, one thread each),
 which import only torch, numpy and the port; the JAX side runs here.
 
-- ``sharded_ngp_loss_and_grads`` on world 2 (each rank its block of the
-  rays; with ``k_buckets`` each routes its own) against JAX
+- ``field_loss_and_grads`` over ``data_group`` on world 2 (each rank its
+  block of the rays; with ``k_buckets`` each routes its own) against JAX
   ``make_sharded_ngp_step`` on ``make_mesh(n_data=2)``, unstratified:
   losses 1e-5, gradients 1e-5 of their largest entry.
 - The fleet: B = 4 on world 2 (two scenes a rank) and B = 2 on world 4 (a

@@ -32,7 +32,7 @@ from instance_nerf_tpu.parallel.ngp_train_step import (
 from instance_nerf_tpu.train import multiscene as JM
 from instance_nerf_tpu.train import ngp_trainer as JT
 from instance_nerf_tpu_torch.convert import fleet_params_from_jax
-from instance_nerf_tpu_torch.parallel import ngp_train_step as TS
+from instance_nerf_tpu_torch.models.render import OccupancyGrid
 from instance_nerf_tpu_torch.train import multiscene as TM
 from instance_nerf_tpu_torch.train import ngp_trainer as TT
 
@@ -115,8 +115,9 @@ def test_fleet_step_matches_jax(fleet, stage):
 
     cfg, tmodel = _port_model(params, **over)
     opt = TT.adam_init(tmodel)
-    losses, grads = TS.multiscene_loss_and_grads(tmodel, cfg, stage, torch.from_numpy(occ),
-                                                 *map(torch.from_numpy, rays), jitter=draws)
+    losses, grads = TT.field_loss_and_grads(
+        tmodel, cfg, stage, OccupancyGrid(torch.from_numpy(occ), cfg.occ_threshold),
+        *map(torch.from_numpy, rays), jitter=draws)
     TT.adam_update(tmodel, grads, opt, stage, LR)
     for k, v in m_j.items():
         np.testing.assert_allclose(float(losses[k].mean()), float(v), rtol=1e-5, err_msg=k)
