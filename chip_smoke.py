@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only slice_spatial   # env, build and slice_spatial alone
     python3 chip_smoke.py --only kernel_adam     # env, build and kernel_adam alone
     python3 chip_smoke.py --only kernel_hash_encode   # env, build and kernel_hash_encode
+    python3 chip_smoke.py --only kernel_composite     # env, build and kernel_composite
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -171,6 +172,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and 16 backwards. Times both kernels (``ms``, ``device_ms``) beside
    their bound (bytes) and the plain chain. Alone: ``python3 chip_smoke.py
    --only kernel_hash_encode``.
+13c3. ``kernel_composite``: kernel B9 (``composite_cuda.composite``, the
+   volume compositing in one launch, its backward in a second) against the
+   plain chain (``render.composite_plain``) on the card at the benchmark's
+   field and B = 32 fleet configurations, on the head's strided
+   ``sigma_raw`` column with a saturated ray, masked samples and invalid
+   rays: f32 outputs within 1e-6 of their largest magnitude, f32 gradients
+   within 1e-5, bf16 gradients within 1e-5 plus one bf16 ulp for each place
+   the chain rounds them to bf16 (two for ``sigma_raw``), in the rgb
+   stage (the gradients of ``sigma_raw`` and ``rgb``), the instance stage
+   (the logits') and without gradient; one launch each way, and a
+   trainer's call of 16 steps launching 16 and 16 with no ``cumprod``.
+   Times both launches (``ms``, ``device_ms``) beside their bound (bytes),
+   and a step's forward and backward against the plain chain's, with each
+   one's device launches. Alone: ``python3 chip_smoke.py --only
+   kernel_composite``.
 13d. ``project_masks``: a 96^3 voxel instance grid and alpha grid projected
    into 8 views at 128^2 on the card and on the CPU: the files equal.
 13e. ``slice_dist`` (main path of slice 7a): training over every visible
@@ -387,16 +403,17 @@ def _counted():
     from instance_nerf_tpu_torch.kernels import (
         adam_cuda,
         coarse_occ_cuda,
+        composite_cuda,
         hash_encode_cuda,
         nms_cuda,
         scatter_cuda,
     )
 
-    # each has a ``launches`` count (B7's and B8's are their modules')
+    # each has a ``launches`` count (B7's, B8's and B9's are their modules')
     return {"nms_boxes": nms_cuda.nms_boxes, "nms_sweep": nms_cuda.nms_sweep,
             "scatter_add": scatter_cuda.scatter_add,
             "coarse_occ_lookup": coarse_occ_cuda.coarse_occ_lookup, "adam": adam_cuda,
-            "hash_encode": hash_encode_cuda}
+            "hash_encode": hash_encode_cuda, "composite": composite_cuda}
 
 
 def lap(parts: dict, name: str, since: float) -> float:
@@ -2900,6 +2917,227 @@ def phase_kernel_hash_encode(smi):
     return report
 
 
+COMPOSITE_CONFIGS = ("field_hash", "fleet_hash")  # the benchmark's configurations
+COMPOSITE_HEAD = 16  # the heads' sigma_1 width: sigma_raw is its column h[..., 0]
+
+
+def composite_bound_ms(rays: int, k: int, elem: int, classes: int, backward: bool) -> float:
+    """B9's least time at the HBM peak, each element read or written once:
+    the forward reads a sample's sigma_raw and 3 colours (``elem`` bytes
+    each), its logits, t and the mask and writes its weight and
+    transmittance (4 bytes each), and a ray reads valid and dt and writes
+    rgb, depth, acc and the logits; the backward reads a sample's sigma_raw,
+    colours, mask and transmittance and writes the gradients of sigma_raw,
+    the colours and the logits, and a ray reads valid, dt and the gradients
+    of rgb and the logits (a step's, as the cells' losses give them)."""
+    if backward:
+        sample = elem * (1 + 3 + 1 + 3 + classes) + 4 + 4
+        ray = 4 + 4 + 12 + 4 * classes
+    else:
+        sample = elem * (1 + 3 + classes) + 4 * 4
+        ray = 4 + 4 + 12 + 4 + 4 + 4 * classes
+    return (rays * k * sample + rays * ray) / PEAK_BYTES_PER_S * 1e3
+
+
+def _composite_inputs(lead, k, classes, dtype, gen):
+    """A step's compositing inputs on the card as the renderer hands them
+    over: sigma_raw the head's column ``h[..., 0]``, colours in (0, 1), t
+    sorted, dt the expanded per-ray span / K, 30% of samples masked and a
+    saturated ray, 5% of rays invalid; the field's tensors want a
+    gradient."""
+    import torch
+
+    dev = dict(device="cuda")
+    shape = (*lead, k)
+    h = torch.randn((*shape, COMPOSITE_HEAD), generator=gen, **dev) * 3.0 + 0.5
+    h.view(-1, k, COMPOSITE_HEAD)[0, :, 0] = 15.0
+    h = h.to(dtype).requires_grad_(True)
+    rgb = torch.rand((*shape, 3), generator=gen, **dev).to(dtype).requires_grad_(True)
+    logits = (torch.randn((*shape, classes), generator=gen, **dev).to(dtype).requires_grad_(True)
+              if classes else None)
+    span = torch.rand(lead, generator=gen, **dev) * 0.7 + 0.5
+    t = torch.sort(torch.rand(shape, generator=gen, **dev), dim=-1).values * span[..., None]
+    dt = (span / k)[..., None].expand(shape)
+    mask = (torch.rand(shape, generator=gen, **dev) < 0.7).float()
+    valid = (torch.rand(lead, generator=gen, **dev) < 0.95).float()
+    return (h[..., 0], rgb, logits, t, dt, mask, valid), h
+
+
+def _within(got, want, bound, ulps: int = 0) -> dict:
+    """``got`` against ``want``: the largest error over the largest
+    magnitude, whether the two are equal bit for bit, whether every element
+    lies within ``bound`` of that magnitude plus ``ulps`` bf16 ulps of its
+    own value (bf16 values), and the most bf16 ulps by which an element
+    differs beyond the bound."""
+    import torch
+
+    got, want = got.detach().float(), want.detach().float()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    diff = (got - want).abs()
+    e = torch.frexp(want.abs()).exponent.float()
+    ulp = torch.where(want == 0, torch.zeros_like(want),
+                      torch.ldexp(torch.ones_like(want), (e - 8).int()))  # bf16: 8 bits
+    beyond = (diff - bound * scale).clamp(min=0)
+    over = beyond / torch.where(ulp > 0, ulp, torch.ones_like(ulp))
+    return {"max_err": float(diff.max()) if diff.numel() else 0.0, "max": scale,
+            "bit_equal": bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+            "bf16_ulps_beyond": float(over.max()) if over.numel() else 0.0,
+            "ok": bool((beyond <= ulps * ulp).all())}
+
+
+def _composite_case(ins_fn, given, gen, bf16: bool) -> dict:
+    """B9 against the plain chain on the card on the same inputs: every
+    output, and the gradients of sigma_raw, rgb and the logits from random
+    gradients of the outputs ``given`` (none: the forward without gradient);
+    launches counted."""
+    import torch
+
+    from instance_nerf_tpu_torch.kernels import composite_cuda
+    from instance_nerf_tpu_torch.models import render as TR
+
+    names = ("rgb", "depth", "acc", "instance_logits", "weights")
+    runs, g = [], None
+    for fn in (TR.composite, TR.composite_plain):
+        ins = ins_fn()
+        before = (composite_cuda.launches, composite_cuda.grad_launches)
+        with torch.set_grad_enabled(bool(given)):
+            out = fn(*ins)
+        grads = ()
+        if given:
+            if g is None:
+                g = [torch.randn(getattr(out, n).shape, generator=gen, device="cuda")
+                     for n in given]
+            wrt = [x for x in ins[:3] if x is not None]
+            grads = torch.autograd.grad([getattr(out, n) for n in given], wrt, g,
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        runs.append((out, grads, (composite_cuda.launches - before[0],
+                                  composite_cuda.grad_launches - before[1])))
+    (k_out, k_grads, launches), (p_out, p_grads, _) = runs
+    res = {"launches": list(launches),
+           "outputs": {n: _within(getattr(k_out, n), getattr(p_out, n), 1e-6)
+                       for n in names}}
+    # one bf16 ulp for each place a gradient is rounded to bf16: sigma_raw's
+    # before and after the exp's backward, rgb's and the logits' once
+    roundings = {"sigma_raw": 2, "rgb": 1, "logits": 1}
+    res["grads"] = {n: _within(a, b, 1e-5, roundings[n] if bf16 else 0) for n, a, b in zip(
+        ("sigma_raw", "rgb", "logits"), k_grads, p_grads) if a is not None and b is not None}
+    res["grads_present"] = [[a is not None for a in k_grads], [b is not None for b in p_grads]]
+    return res
+
+
+def phase_kernel_composite(smi):
+    """Kernel B9 against the plain chain on the card at the benchmark's
+    field and B = 32 fleet shapes (the rgb and instance stages' gradients,
+    the forward alone), a trainer's call counted with no ``cumprod`` in it,
+    both launches timed beside their bound and the plain chain."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from instance_nerf_tpu_torch.data.nerf_dataset import make_synthetic_nerf_scene
+    from instance_nerf_tpu_torch.kernels import composite_cuda
+    from instance_nerf_tpu_torch.models import render as TR
+    from instance_nerf_tpu_torch.train import ngp_trainer as TT
+    from instance_nerf_tpu_torch.train.multiscene import MultiSceneFieldTrainer
+
+    report = {"phase": "kernel_composite", "nvidia_smi": smi, "configs": {}}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name in COMPOSITE_CONFIGS:
+        cfg, raw = _bench_ngp_config(name)
+        b = raw.get("n_scenes")
+        bf16 = cfg.dtype == "bfloat16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        lead = (cfg.n_rays,) if b is None else (b, cfg.n_rays)
+        k, classes = cfg.k_occupied, cfg.num_instances
+        out = {"B": b, "rays": int(np.prod(lead)), "K": k, "dtype": cfg.dtype, "cases": {}}
+        for case, n_cls, given in (("rgb", 0, ("rgb",)),
+                                   ("instance", classes, ("instance_logits",)),
+                                   ("forward", 0, ())):
+            seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device="cuda"))
+
+            def ins_fn(n_cls=n_cls, seed=seed):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                return _composite_inputs(lead, k, n_cls, dtype, g)[0]
+
+            out["cases"][case] = _composite_case(ins_fn, given, gen, bf16)
+        bad = {c: v for c, v in out["cases"].items()
+               if not all(x["ok"] for x in (*v["outputs"].values(), *v["grads"].values()))
+               or v["launches"] != ([1, 1] if c != "forward" else [1, 0])
+               or v["grads_present"][0] != v["grads_present"][1]}
+        if bad:
+            emit({**report, "failed": name, "cases": out["cases"]})
+            raise AssertionError(f"kernel_composite {name}: B9 differs from the plain chain "
+                                 f"or launched otherwise: {bad}")
+        # timing on the rgb stage's inputs: the forward without gradient,
+        # the backward's launch, a step's forward and backward of each
+        ins, h = _composite_inputs(lead, k, 0, dtype, gen)
+        g = torch.randn((*lead, 3), generator=gen, device="cuda")
+        wrt = ins[:2]
+        kept = TR.composite(*ins)
+        elem = 2 if bf16 else 4
+        rays = int(np.prod(lead))
+
+        def fwd():
+            with torch.no_grad():
+                TR.composite(*ins)
+
+        def bwd():
+            torch.autograd.grad(kept.rgb, wrt, g, retain_graph=True)
+
+        def step(composite):
+            def run():
+                torch.autograd.grad(composite(*ins).rgb, wrt, g)
+            return run
+
+        timing = {"rays": rays, "K": k,
+                  "ms": cuda_ms(fwd, reps=50), "grad_ms": cuda_ms(bwd, reps=50),
+                  "bound_ms": composite_bound_ms(rays, k, elem, 0, False),
+                  "grad_bound_ms": composite_bound_ms(rays, k, elem, 0, True),
+                  "bound_by": "bytes", "host_ms": host_ms(fwd, reps=20),
+                  "step_ms": cuda_ms(step(TR.composite), reps=20),
+                  "plain_step_ms": cuda_ms(step(TR.composite_plain), reps=20)}
+        profiled(timing, "device_ms", fwd, 20, "composite_kernel", "composite_kernel")
+        profiled(timing, "grad_device_ms", bwd, 20, "composite_grad_kernel",
+                 "composite_grad_kernel")
+        for key, composite in (("step", TR.composite), ("plain_step", TR.composite_plain)):
+            d = _device_total_ms(step(composite), reps=10)
+            timing[f"{key}_device_ms"], timing[f"{key}_launches"] = d["ms"], d["activities"]
+        out["timing"] = timing
+        del ins, h, g, kept
+        release()
+        # a trainer's call of occ_update_every steps: its launches, and no
+        # cumprod
+        rng = np.random.default_rng(0)
+        if b is None:
+            scene, _ = make_synthetic_nerf_scene(rng, device="cuda", **FIELD_SCENE)
+            tr = TT.InstanceFieldTrainer(cfg, seed=0, device="cuda")
+            call = lambda: tr.train(scene, cfg.occ_update_every, log_every=0)  # noqa: E731
+        else:
+            scenes = [make_synthetic_nerf_scene(rng, device="cuda", **FLEET_SCENE)[0]
+                      for _ in range(b)]
+            tr = MultiSceneFieldTrainer(scenes, cfg, seed=0, device="cuda", device_data=True)
+            call = lambda: tr.train(cfg.occ_update_every, log_every=0)  # noqa: E731
+        call()  # warm
+        torch.cuda.synchronize()
+        before = (composite_cuda.launches, composite_cuda.grad_launches)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+            torch.cuda.synchronize()
+        out["launches_call"] = composite_cuda.launches - before[0]
+        out["grad_launches_call"] = composite_cuda.grad_launches - before[1]
+        out["cumprod_calls"] = sum(e.name == "aten::cumprod" for e in prof.events())
+        want = (cfg.occ_update_every, cfg.occ_update_every, 0)
+        got = (out["launches_call"], out["grad_launches_call"], out["cumprod_calls"])
+        if got != want:
+            raise AssertionError(f"kernel_composite {name}: a call launched B9 {got[0]} / "
+                                 f"{got[1]} times with {got[2]} cumprod, not {want}")
+        report["configs"][name] = out
+        del tr, call
+        release()
+    emit(report)
+    return report
+
+
 def phase_project_masks(work):
     """A synthetic voxel instance grid and alpha grid projected into 8 views
     at 128^2 on the card and on the CPU: the id maps equal exactly."""
@@ -4461,6 +4699,7 @@ def main():
         phase_small_reference_fleet()
         adam = phase_kernel_adam(smi)
         hashenc = phase_kernel_hash_encode(smi)
+        comp = phase_kernel_composite(smi)
         phase_project_masks(work)
         dist = phase_slice_dist(work, smi)
         sp_out = prepare_slice_spatial(work)
@@ -4567,6 +4806,14 @@ def main():
                "grad_launches_call": v["grad_launches_call"],
                "feats_max_ulps": v["cases"]["step"]["feats_max_ulps"]}
            for k, v in hashenc["configs"].items()},
+    }, {
+        "name": "composite", "route": "cuda",
+        "source": "instance_nerf_tpu_torch/csrc/composite.cu", "replaces": None,
+        "launches": launches_field["composite"],
+        "launches_fleet": fleet["launches_rgb"]["composite"],
+        **{k: {**v["timing"], "launches_call": v["launches_call"],
+               "grad_launches_call": v["grad_launches_call"]}
+           for k, v in comp["configs"].items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4593,8 +4840,8 @@ def main_spatial():
 
 
 def main_one(phase):
-    """``--only kernel_adam`` / ``--only kernel_hash_encode``: the
-    environment, the kernels' build and that phase."""
+    """``--only kernel_adam`` / ``kernel_hash_encode`` / ``kernel_composite``:
+    the environment, the kernels' build and that phase."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4617,5 +4864,7 @@ if __name__ == "__main__":
         main_one(phase_kernel_adam)
     elif sys.argv[1:] == ["--only", "kernel_hash_encode"]:
         main_one(phase_kernel_hash_encode)
+    elif sys.argv[1:] == ["--only", "kernel_composite"]:
+        main_one(phase_kernel_composite)
     else:
         main()

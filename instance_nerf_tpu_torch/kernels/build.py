@@ -24,7 +24,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # every kernel source of the port, by name (csrc/<name>.cu)
-SOURCES = ("nms_sweep", "nms_sweep_iou", "scatter_add", "coarse_occ", "adam", "hash_encode")
+SOURCES = ("nms_sweep", "nms_sweep_iou", "scatter_add", "coarse_occ", "adam", "hash_encode",
+           "composite")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

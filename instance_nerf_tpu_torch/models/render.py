@@ -5,7 +5,8 @@ Occupancy skipping follows the JAX package: a fixed number of samples per
 ray, the occupancy of each looked up in a dense grid, and with
 ``k_occupied`` only the first K occupied samples of each ray (depth order
 kept) go through the field. Compositing is a ``cumprod`` over the sample
-axis; instance logits composite through detached weights.
+axis; instance logits composite through detached weights. On the card it is
+kernel B9 (``kernels/composite_cuda.py``), one launch each way.
 
 Random draws: JAX's threefry streams cannot be reproduced, so
 ``sample_points`` and ``update_occupancy`` take a ``torch.Generator`` or
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from instance_nerf_tpu_torch.kernels import composite_cuda
 from instance_nerf_tpu_torch.models.hashgrid import density_activation
 from instance_nerf_tpu_torch.train.timing import NO_STAGES
 
@@ -209,9 +211,21 @@ def composite(sigma_raw, rgb, inst_logits, t, dt, occ_mask=None, valid=None,
               stage=NO_STAGES) -> RenderOut:
     """Alpha compositing; instance logits composite like color, through
     DETACHED weights, with the residual transmittance credited to the
-    background class (index 0) as +10. The backward of ``cumprod`` reads
-    whether any factor is 0 back to the host: ``stage`` opens a ``wait``
-    span around it."""
+    background class (index 0) as +10. CPU tensors run ``composite_plain``;
+    any other device kernel B9 (``kernels/composite_cuda.py:composite``),
+    which raises off CUDA and on inputs it does not take, and reads nothing
+    back to the host (``stage`` opens no wait)."""
+    if sigma_raw.device.type == "cpu":
+        return composite_plain(sigma_raw, rgb, inst_logits, t, dt, occ_mask, valid, stage)
+    return RenderOut(*composite_cuda.composite(sigma_raw, rgb, inst_logits, t, dt, occ_mask,
+                                               valid))
+
+
+def composite_plain(sigma_raw, rgb, inst_logits, t, dt, occ_mask=None, valid=None,
+                    stage=NO_STAGES) -> RenderOut:
+    """``composite`` as a chain of PyTorch operations (the CPU's path). The
+    backward of ``cumprod`` reads whether any factor is 0 back to the host:
+    ``stage`` opens a ``wait`` span around it."""
     sigma = density_activation(sigma_raw)
     if occ_mask is not None:
         sigma = sigma * occ_mask

@@ -51,9 +51,9 @@ from instance_nerf_tpu_torch.parallel.ngp_train_step import sum_grads
 from instance_nerf_tpu_torch.train.timing import NO_STAGES, Stages, benchmark_ms, profile_ms
 
 
-# the hand-written kernels of a field's training step (B8, B3, B7), built
+# the hand-written kernels of a field's training step (B8, B3, B7, B9), built
 # together when a trainer is made on the card: one nvcc each, in parallel
-FIELD_KERNELS = ("hash_encode", "scatter_add", "adam")
+FIELD_KERNELS = ("hash_encode", "scatter_add", "adam", "composite")
 
 
 @dataclass

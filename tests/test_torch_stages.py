@@ -6,17 +6,19 @@ stage it sits in), and every stage span the paths opened before;
 ``Stages.upload`` is ``torch.as_tensor``; without a profiler ``Stages``
 opens no range; ``profile_ms``' busy share is the union of the device's
 intervals. On a card, one call of each path raises no synchronisation
-warning outside a ``wait`` span, and the encoding (kernel B8) opens none.
+warning outside a ``wait`` span, and neither the encoding (kernel B8) nor
+the compositing (kernel B9) opens one.
 
-The counts a call: the field uploads the scene's poses once, each step's
-view and pixel ids and targets (4, ``rays``) and the encoding's six host
-constants (``encode``; in the refresh six per chunk of points,
-``occ_update``), waits once a step inside the backward (``cumprod``'s
-backward reads back whether a factor is 0), and reads its metrics back
-(one span for their ``float``s). The fleet's card draws upload nothing;
-its host draws upload 4 arrays a batch (``rays``). On the card the
-encoding is kernel B8, whose constants are kernel arguments: no wait in
-``encode`` and none in the refresh.
+The counts a call on the CPU: the field uploads the scene's poses once,
+each step's view and pixel ids and targets (4, ``rays``) and the encoding's
+six host constants (``encode``; in the refresh six per chunk of points,
+``occ_update``), waits once a step inside the backward (the plain
+compositing's ``cumprod``'s backward reads back whether a factor is 0), and
+reads its metrics back (one span for their ``float``s). The fleet's card
+draws upload nothing; its host draws upload 4 arrays a batch (``rays``). On
+the card the encoding is kernel B8, whose constants are kernel arguments:
+no wait in ``encode`` and none in the refresh; and the compositing is
+kernel B9, whose backward reads nothing back: no wait in the backward.
 
 No JAX here: the card test runs on a machine without it
 (``python -m pytest --noconftest tests/test_torch_stages.py``).
@@ -249,8 +251,7 @@ def test_no_sync_outside_wait_on_the_card(monkeypatch, capsys):
             print(f"\n{label}: one call of {STEPS} steps synchronises {len(syncs)} times "
                   f"and opens {waits} wait spans; none outside them")
         assert syncs and waits
-        # the CPU's counts less the encoding's uploads (test_field_call_spans,
-        # test_fleet_call_spans); the backward's waits run on autograd's
-        # device thread here, outside every stage span of the profile
-        assert inside == ({"rays": 4 * STEPS, None: 2 + STEPS} if label == "field"
-                          else {None: 1 + STEPS})
+        # the CPU's counts (test_field_call_spans, test_fleet_call_spans)
+        # less the encoding's uploads and the backward's read-back: the
+        # uploads in rays and the reads outside every stage
+        assert inside == ({"rays": 4 * STEPS, None: 2} if label == "field" else {None: 1})
